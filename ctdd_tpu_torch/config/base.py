@@ -1,0 +1,50 @@
+"""A small attribute-access config (the port's stand-in for ConfigDict).
+
+Nested dicts become `Config`s; `to_dict()` gives plain data back, which is
+what a checkpoint stores.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+
+class Config:
+    """Mutable nested config with attribute and item access."""
+
+    def __init__(self, d: dict | None = None, **kw):
+        object.__setattr__(self, "_d", {})
+        for k, v in {**(d or {}), **kw}.items():
+            self[k] = v
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._d[name]
+        except KeyError:
+            raise AttributeError(
+                f"no config key {name!r}; known: {sorted(self._d)}"
+            ) from None
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __getitem__(self, name: str) -> Any:
+        return self._d[name]
+
+    def __setitem__(self, name: str, value: Any) -> None:
+        self._d[name] = Config(value) if isinstance(value, dict) else value
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._d
+
+    def get(self, name: str, default: Any = None) -> Any:
+        return self._d.get(name, default)
+
+    def to_dict(self) -> dict:
+        return {
+            k: v.to_dict() if isinstance(v, Config) else v
+            for k, v in self._d.items()
+        }
+
+    def __repr__(self) -> str:
+        return f"Config({self.to_dict()!r})"
