@@ -9,10 +9,19 @@ Phases (any fault exits non-zero; nothing is caught):
   3. kernels  fused tau-leap kernel vs its plain PyTorch version on the card
   4. timing   kernel, plain version and bound at N=256, D=784, S=256
   5. unet     full-width logits on the card vs the port's CPU logits, and
-              tau-leap steps on the card vs the CPU with the same uniforms
-  6. steps    where a batch-16 sampler step's time goes (torch.profiler)
+              tau-leap and LBJF steps on the card vs the CPU with the same
+              injected noise
+  6. steps    where a batch-16 TauL step's time goes (torch.profiler)
   7. serving  a seeded full-width checkpoint served over HTTP: two 1000-step
               batches of the flagship sampler with the fused update
+  8. rates    reverse-rates and Euler-posterior kernels vs their plain
+              versions, per-sample and shared tables, real process tables
+  9. timing   both kernels, plain versions and bounds at N=256 and N=16
+ 10. steps    where a batch-16 LBJF step's time goes
+ 11. serving  three more seeded checkpoints over HTTP, each with its exact
+              launch counts: the flagship with LBJF and a live corrector
+              (1000 steps), tauUnet_mnist_ll (MidPointTauL, fused) and
+              tauUnet_maze (LBJF/200)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -33,6 +42,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+RATE_ROW_TOL = 2e-5  # reverse rates: share of a row's largest |value|
+POST_PROB_TOL = 2e-6  # Euler posterior: probabilities exp(out)
+POST_LOG_TOL = 5e-5  # Euler posterior: log-probabilities off the entry at x
 MAX_FLIP_FRAC = 1e-3  # kernel vs plain: rounding ties under another sum order
 STEP_FLIP_FRAC = 5e-3  # whole steps, card vs CPU: network logits differ too
 
@@ -166,11 +179,159 @@ def phase_timing(dev) -> dict:
     return out
 
 
-def full_cfg(fused: bool):
+# ---------------------------------------------------------------------------
+# phases 8/9 inputs: real process tables, a timestep per sample or one shared
+# ---------------------------------------------------------------------------
+
+
+def rate_process(S, dev):
+    """The process and (t_k, h_k) grid of the serving path that runs this S."""
+    from ctdd_tpu_torch.ops import forward_process as fp
+    from ctdd_tpu_torch.sampling.samplers import _time_grid
+
+    if S == 3:  # tauUnet_maze
+        return (fp.make_uniform_variant(3, 2.0, "log_sqr", device=dev),
+                _time_grid(1.0, 0.001, 200))
+    if S == 2:  # mlp_synthetic
+        return fp.make_uniform(2, 2.0, device=dev), _time_grid(0.99999, 0.007, 100)
+    return (fp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0, device=dev),
+            _time_grid(1.0, 0.01, 1000))
+
+
+def rate_inputs(N, D, S, fracs, seed, dev, per_sample):
+    """(logits, qt0_cols, qt0, rate_cols, x, h) at the grid positions `fracs`
+    (shares of the grid's length): sample n sits at fracs[n % len(fracs)]
+    with its own (S, S) table, or the batch shares the table of fracs[0]."""
+    from ctdd_tpu_torch.ops import indexing
+    from ctdd_tpu_torch.sampling.samplers import _shared_mats
+
+    proc, (ts, hs) = rate_process(S, dev)
+    steps = [min(int(f * len(ts)), len(ts) - 1) for f in fracs]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = 2.0 * torch.randn((N, D, S), generator=g, device=dev)
+    x = torch.randint(0, S, (N, D), generator=g, device=dev, dtype=torch.int32)
+    if per_sample:
+        t = torch.tensor([float(ts[steps[n % len(steps)]]) for n in range(N)],
+                         dtype=torch.float32, device=dev)
+        qt0, rate = proc.transition(t).contiguous(), proc.rate(t)
+        qc, rc = indexing.cols(qt0, x) + 1e-9, indexing.cols(rate, x)
+    else:
+        qt0, rate = _shared_mats(proc, float(ts[steps[0]]))
+        qt0 = qt0.contiguous()
+        qc, rc = qt0.t()[x.long()] + 1e-9, rate.t()[x.long()]
+    return logits, qc.contiguous(), qt0, rc.contiguous(), x, float(hs[steps[0]])
+
+
+def phase_rate_kernels(dev) -> dict:
+    """Reverse-rates and Euler-posterior kernels vs their plain versions.
+
+    Tolerances. Both sides are float32 and sum S terms in another order. The
+    reverse rates sum non-negative terms (q_{t|0} >= 0), so a row's error is
+    bounded by S * 2^-24 ~ 1.5e-5 of its largest value and is ~1e-6 in
+    practice: RATE_ROW_TOL of the row's largest |value|; the entry at x must
+    be exactly 0. The posterior is fed the same rates on both sides; its
+    probabilities agree to POST_PROB_TOL (two row sums), its log-values off
+    the entry at x to POST_LOG_TOL (values reach 80, one ulp there is 8e-6).
+    The entry at x is 1 - h * sum, which cancels where h * sum ~ 1, so it is
+    held in probability only."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
+    tiny = torch.finfo(torch.float32).tiny
+    for N, D, S in [(16, 784, 256), (3, 77, 256), (16, 225, 3), (5, 32, 2), (3, 77, 8)]:
+        iota = torch.arange(S, device=dev)
+        for per_sample, fracs in ((True, (0.1, 0.5, 0.95)), (False, (0.1,)),
+                                  (False, (0.5,)), (False, (0.95,))):
+            logits, qc, qt0, rc, x, h = rate_inputs(
+                N, D, S, fracs, N * D + int(100 * fracs[0]), dev, per_sample)
+            k = rk.reverse_rates(logits, qc, qt0, rc, x)
+            torch.cuda.synchronize()
+            p = rk.reverse_rates_plain(logits, qc, qt0, rc, x)
+            scale = p.abs().amax(-1, keepdim=True).clamp_min(tiny)
+            row_rel = ((k - p).abs() / scale).max().item()
+            at_x = k.gather(-1, x.long()[..., None])
+            what = (f"N={N} D={D} S={S} {'per-sample' if per_sample else 'shared'} "
+                    f"tables at {fracs}")
+            if not math.isfinite(row_rel) or row_rel > RATE_ROW_TOL:
+                raise AssertionError(f"reverse_rates {what}: {row_rel:.3e} of a row's max")
+            if bool((at_x != 0).any()):
+                raise AssertionError(f"reverse_rates {what}: entry at x not 0")
+            worst["rate_abs"] = max(worst["rate_abs"], (k - p).abs().max().item())
+            worst["rate_row_rel"] = max(worst["rate_row_rel"], row_rel)
+
+            off = p.sum(-1)
+            off_x = iota[None, None, :] != x[:, :, None]
+            dead_shares = []
+            # the sampler's own h, and one that drives half the rows to diag = 0
+            for hh in (h, float(1.0 / off.median())):
+                kp = rk.euler_posterior(k, x, hh)
+                torch.cuda.synchronize()
+                pp = rk.euler_posterior_plain(k, x, hh)
+                prob = (kp.exp() - pp.exp()).abs().max().item()
+                logd = ((kp - pp).abs() * off_x).max().item()
+                if not (math.isfinite(prob) and math.isfinite(logd)) or \
+                        prob > POST_PROB_TOL or logd > POST_LOG_TOL:
+                    raise AssertionError(
+                        f"euler_posterior {what} h={hh:.3g}: probabilities differ "
+                        f"by {prob:.3e}, log-values off x by {logd:.3e}")
+                worst["post_prob"] = max(worst["post_prob"], prob)
+                worst["post_log"] = max(worst["post_log"], logd)
+                dead_shares.append((hh * off >= 1).float().mean().item())
+            if not dead_shares[1] > 0:
+                raise AssertionError(f"euler_posterior {what}: no row with diag = 0")
+            log(f"  {what}: rates within {row_rel:.2e} of the row max, 0 at x; "
+                f"posterior agrees at h={h:.3g} and with diag=0 in "
+                f"{dead_shares[1]:.2f} of the rows")
+    return worst
+
+
+def phase_rate_timing(dev) -> dict:
+    """Both kernels at the serving shapes (shared table, mid-grid)."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    out = {"reverse_rates": {}, "euler_posterior": {}}
+    D, S = 784, 256
+    for N in (256, 16):
+        logits, qc, qt0, rc, x, h = rate_inputs(N, D, S, (0.5,), 1, dev, False)
+        iters = 20 if N == 256 else 200
+        rev = rk.reverse_rates(logits, qc, qt0, rc, x)
+        nds = logits.numel()
+        cases = {
+            # three (N, D, S) inputs, x, the table; one output. The product
+            # stays float32, so its rate is the f32 one outside the tensor cores
+            "reverse_rates": (
+                lambda: rk.reverse_rates(logits, qc, qt0, rc, x),
+                lambda: rk.reverse_rates_plain(logits, qc, qt0, rc, x),
+                4 * (3 * nds + x.numel() + S * S + nds), 2.0 * N * D * S * S),
+            # one input, x, one output; ~8 operations per entry
+            "euler_posterior": (
+                lambda: rk.euler_posterior(rev, x, h),
+                lambda: rk.euler_posterior_plain(rev, x, h),
+                4 * (nds + x.numel() + nds), 8.0 * nds),
+        }
+        for name, (kernel, plain, nbytes, flops) in cases.items():
+            ms = cuda_ms(kernel, iters)
+            plain_ms = cuda_ms(plain, max(iters // 10, 3))
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_FLOP_PER_S * 1e3
+            out[name][N] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops)
+            log(f"  {name} N={N} D={D} S={S}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {out[name][N]['bound_ms'] * 1e3:.1f} us "
+                f"({out[name][N]['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP at the f32 rate)")
+    return out
+
+
+def full_cfg(fused: bool, sampler: str = "TauL", preset: str = "tauUnet_mnist"):
     from ctdd_tpu_torch.config.presets import get_preset
 
-    cfg = get_preset("tauUnet_mnist")
+    cfg = get_preset(preset)
     cfg.sampler.use_fused_update = fused
+    if preset == "tauUnet_mnist":
+        cfg.sampler.name = sampler
     return cfg
 
 
@@ -233,18 +394,44 @@ def _unet_vs_cpu(dev):
     # through the bf16 rounding of p / qd they flip a few CDF comparisons
     if flips > STEP_FLIP_FRAC * 3 * xs.numel():
         raise AssertionError(f"{flips} states differ between card and CPU")
+
+    # three LBJF steps at full width with injected Gumbel noise: reverse-rates
+    # and Euler-posterior kernels on the card, their plain versions on the CPU
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    lbjf = get_sampler(full_cfg(fused=False, sampler="LBJF"))
+    before = rk.reverse_rates.launches, rk.euler_posterior.launches
+    xc, xd = xs.clone(), xs.to(dev)
+    flips = 0
+    with torch.inference_mode():
+        for t_, h_ in ((0.6, 1e-3), (0.3, 1e-3), (0.05, 1e-3)):
+            gn = torch.from_numpy(g.gumbel(size=(2, 784, 256)).astype(np.float32))
+            xc = lbjf.step(cpu, cpu.net, xc, t_, h_, g=gn)
+            xd = lbjf.step(gpu, gpu.net, xd, t_, h_, g=gn.to(dev))
+            flips += int((xd.cpu() != xc).sum())
+            xd = xc.to(dev)
+    if (rk.reverse_rates.launches, rk.euler_posterior.launches) != (
+            before[0] + 3, before[1] + 3):
+        raise AssertionError("the LBJF steps on the card did not launch both kernels")
+    moved = (xc != xs).float().mean().item()
+    log(f"  3 LBJF steps at full width, card vs CPU: {flips} of "
+        f"{3 * xs.numel()} states differ (moved {moved:.3f})")
+    # the same allowance: logits differing by ~1e-5 move argmax(logp + g)
+    # only where two entries tie to that precision
+    if flips > STEP_FLIP_FRAC * 3 * xs.numel():
+        raise AssertionError(f"{flips} LBJF states differ between card and CPU")
     return n_params
 
 
-def phase_step_breakdown(dev, steps: int = 20) -> dict:
+def phase_step_breakdown(dev, cfg, kernel_names, steps: int = 20) -> dict:
     """Where one serving step's time goes at batch 16: the network, the
-    fused kernel, the rest, and the share of the step the card is idle."""
+    hand-written kernels (`kernel_names`: label -> part of the device
+    kernel's name), the rest, and the share of the step the card is idle."""
     from torch.profiler import ProfilerActivity, profile
 
     from ctdd_tpu_torch.models.base import create_model
     from ctdd_tpu_torch.sampling.samplers import get_sampler
 
-    cfg = full_cfg(fused=True)
     torch.manual_seed(2)
     model = create_model(cfg, device=dev)
     model.net.eval()
@@ -273,38 +460,53 @@ def phase_step_breakdown(dev, steps: int = 20) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    fused_ms = sum(e.self_device_time_total for e in kernels
-                   if "fused_tau_leap" in e.key) / 1e3 / steps
-    out = dict(step_ms=step_ms, unet_ms=unet_ms, device_busy_ms=busy_ms,
-               fused_kernel_ms=fused_ms,
+    own = {label: sum(e.self_device_time_total for e in kernels
+                      if part in e.key) / 1e3 / steps
+           for label, part in kernel_names.items()}
+    if busy_ms and not all(own.values()):
+        raise AssertionError(f"a kernel of the step is missing from the trace: {own}")
+    out = dict(sampler=cfg.sampler.name, step_ms=step_ms, unet_ms=unet_ms,
+               device_busy_ms=busy_ms, **own,
                idle_share=1.0 - busy_ms / step_ms if busy_ms else None,
                device_kernels_per_step=sum(e.count for e in kernels) / steps)
-    log(f"  step at batch 16: {step_ms:.3f} ms wall; UNet forward "
-        f"{unet_ms:.3f} ms (events); device busy {busy_ms:.3f} ms "
-        f"(fused kernel {fused_ms:.3f} ms) over "
+    log(f"  {cfg.sampler.name} step at batch 16: {step_ms:.3f} ms wall; UNet "
+        f"forward {unet_ms:.3f} ms (events); device busy {busy_ms:.3f} ms ("
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in own.items()) + ") over "
         f"{out['device_kernels_per_step']:.0f} kernels; idle share "
         + (f"{out['idle_share']:.3f}" if busy_ms else "not measured"))
     return out
 
 
-def phase_serving(dev, tmpdir):
-    from ctdd_tpu_torch.models.base import create_model
+def kernel_wrappers() -> dict:
     from ctdd_tpu_torch.ops import fused_update as fu
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    return {"fused_tau_leap_update": fu.fused_tau_leap_update,
+            "reverse_rates": rk.reverse_rates,
+            "euler_posterior": rk.euler_posterior}
+
+
+def serve_request(dev, tmpdir, label, cfg, n, expected, seed):
+    """Seeded checkpoint -> SamplerService -> one /generate?n= request over
+    HTTP. The launch counters are set to 0 just before the request and read
+    just after; `expected` gives every kernel's exact count per batch."""
+    from ctdd_tpu_torch.models.base import create_model
     from ctdd_tpu_torch.serving import SamplerService, run_http_server
     from ctdd_tpu_torch.utils.bookkeeping import save_checkpoint
 
-    cfg = full_cfg(fused=True)
-    torch.manual_seed(1)
+    torch.manual_seed(seed)
     model = create_model(cfg)
     sd = model.net.state_dict()
-    path = save_checkpoint(f"{tmpdir}/flagship.pt", sd, sd, step=0, config=cfg)
+    n_params = sum(v.numel() for v in sd.values())
+    path = save_checkpoint(f"{tmpdir}/{label}.pt", sd, sd, step=0, config=cfg)
     svc = SamplerService(cfg, path, batch=16, device=dev)
     t0 = time.perf_counter()
     svc.warmup()
     torch.cuda.synchronize()
-    log(f"  warm-up batch (16 samples, {cfg.sampler.num_steps} steps): "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"  {label}: {n_params / 1e6:.2f} M params, {cfg.sampler.name}; warm-up "
+        f"batch of 16: {time.perf_counter() - t0:.2f} s")
 
+    wrappers = kernel_wrappers()
     server = run_http_server(svc, port=0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -314,29 +516,74 @@ def phase_serving(dev, tmpdir):
             health = json.loads(r.read())
         if not health["ok"] or health["batch"] != 16:
             raise AssertionError(f"healthz: {health}")
-        fu.fused_tau_leap_update.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.perf_counter()
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/generate?n=20",
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/generate?n={n}",
                                     timeout=900) as r:
             payload = json.loads(r.read())
         elapsed = time.perf_counter() - t0
-        launches = fu.fused_tau_leap_update.launches
+        launches = {name: w.launches for name, w in wrappers.items()}
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
+    D, S = cfg.model.concat_dim, cfg.data.S
     samples = np.asarray(payload["samples"])
-    if samples.shape != (20, 784) or samples.min() < 0 or samples.max() > 255:
-        raise AssertionError(f"bad samples: shape {samples.shape}, "
+    if samples.shape != (n, D) or samples.min() < 0 or samples.max() > S - 1:
+        raise AssertionError(f"{label}: bad samples: shape {samples.shape}, "
                              f"range [{samples.min()}, {samples.max()}]")
-    if launches != 2 * cfg.sampler.num_steps:
-        raise AssertionError(f"fused kernel launched {launches} times, "
-                             f"expected {2 * cfg.sampler.num_steps}")
-    log(f"  /generate?n=20: {elapsed:.2f} s for 2 batches of 16 "
-        f"({20 / elapsed:.3f} samples/s served, {32 / elapsed:.3f} samples/s "
-        f"generated on {torch.cuda.get_device_name(dev)}), fused kernel "
-        f"launches {launches}, values in [{samples.min()}, {samples.max()}]")
+    batches = -(-n // 16)
+    want = {name: batches * expected.get(name, 0) for name in wrappers}
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
+    made = 16 * batches
+    log(f"  {label} /generate?n={n}: {elapsed:.2f} s for {batches} batch(es) of 16 "
+        f"({n / elapsed:.3f} samples/s served, {made / elapsed:.3f} samples/s "
+        f"generated on {torch.cuda.get_device_name(dev)}), launches "
+        f"{ {k: v for k, v in launches.items() if v} }, values in "
+        f"[{samples.min()}, {samples.max()}]")
     return launches, elapsed
+
+
+def phase_serving(dev, tmpdir):
+    """The flagship with the fused TauL update: two batches of 16."""
+    cfg = full_cfg(fused=True)
+    return serve_request(dev, tmpdir, "tauUnet_mnist TauL fused", cfg, 20,
+                         {"fused_tau_leap_update": cfg.sampler.num_steps}, seed=1)
+
+
+def phase_serving_slice2(dev, tmpdir):
+    """LBJF with a live corrector at full width, MidPointTauL (fused) and
+    the maze preset; every expected count comes from the sampler's own time
+    grid."""
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+
+    out = {}
+    cfg = full_cfg(fused=False, sampler="LBJF")
+    cfg.sampler.num_corrector_steps = 2
+    cfg.sampler.corrector_entry_time = 0.05
+    ts, _ = get_sampler(cfg).time_grid()
+    live = int((ts <= np.float32(cfg.sampler.corrector_entry_time)).sum())
+    per_batch = len(ts) + cfg.sampler.num_corrector_steps * live
+    log(f"  LBJF grid: {len(ts)} steps, {live} at or below the "
+        f"corrector's entry time -> {per_batch} launches of each rate kernel")
+    out["tauUnet_mnist LBJF corrector"] = serve_request(
+        dev, tmpdir, "tauUnet_mnist LBJF corrector", cfg, 16,
+        {"reverse_rates": per_batch, "euler_posterior": per_batch}, seed=3)
+
+    cfg = full_cfg(fused=True, preset="tauUnet_mnist_ll")
+    n_steps = len(get_sampler(cfg).time_grid()[0])
+    out["tauUnet_mnist_ll"] = serve_request(
+        dev, tmpdir, "tauUnet_mnist_ll", cfg, 16,
+        {"fused_tau_leap_update": 2 * n_steps}, seed=4)
+
+    cfg = full_cfg(fused=False, preset="tauUnet_maze")
+    steps = len(get_sampler(cfg).time_grid()[0])
+    out["tauUnet_maze"] = serve_request(
+        dev, tmpdir, "tauUnet_maze", cfg, 16,
+        {"reverse_rates": steps, "euler_posterior": steps}, seed=5)
+    return out
 
 
 def main() -> int:
@@ -354,7 +601,7 @@ def main() -> int:
 
     log("[2] build")
     t0 = time.perf_counter()
-    reports = _build.build(["fused_tau_leap"])
+    reports = _build.build(["fused_tau_leap", "reverse_rates", "euler_posterior"])
     seconds = time.perf_counter() - t0
     for name, rep in reports.items():
         regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
@@ -367,42 +614,77 @@ def main() -> int:
     log("[4] timing")
     timing = phase_timing(dev)
 
-    log("[5] UNet and tau-leap steps, card vs CPU")
+    log("[5] UNet, tau-leap and LBJF steps, card vs CPU")
     phase_unet(dev)
 
-    log("[6] step breakdown")
-    breakdown = phase_step_breakdown(dev)
+    log("[6] TauL step breakdown")
+    breakdown = phase_step_breakdown(
+        dev, full_cfg(fused=True), {"fused_kernel_ms": "fused_tau_leap"})
 
-    log("[7] serving")
+    log("[8] reverse-rates and Euler-posterior kernels vs plain versions")
+    rate_err = phase_rate_kernels(dev)
+
+    log("[9] timing of the rate kernels")
+    rate_timing = phase_rate_timing(dev)
+
+    log("[10] LBJF step breakdown")
+    lbjf_breakdown = phase_step_breakdown(
+        dev, full_cfg(fused=False, sampler="LBJF"),
+        {"reverse_rates_kernel_ms": "reverse_rates_kernel",
+         "euler_posterior_kernel_ms": "euler_posterior_kernel"})
+
     with tempfile.TemporaryDirectory() as tmpdir:
+        log("[7] serving: the flagship, fused TauL")
         launches, elapsed = phase_serving(dev, tmpdir)
+        log("[11] serving: LBJF with a corrector, MidPointTauL, maze")
+        served = phase_serving_slice2(dev, tmpdir)
 
-    big, small = timing[256], timing[16]
-    record = {"kernels": [{
-        "name": "fused_tau_leap_update",
-        "route": "cuda",
-        "source": "ctdd_tpu_torch/csrc/fused_tau_leap.cu",
-        "replaces": "ctdd_tpu/ops/fused_update.py:170",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": big["ms"],
-        "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"],
-        "library_ms": None,
-        "shape": [256, 784, 256],
-        "serving_shape": [16, 784, 256],
-        "serving_ms": small["ms"],
-        "serving_plain_ms": small["plain_ms"],
-        "serving_bound_ms": small["bound_ms"],
-    }]}
+    by_request = {"tauUnet_mnist TauL fused n=20": launches,
+                  **{label: counts for label, (counts, _) in served.items()}}
+
+    def entry(name, source, replaces, err, big, small, **extra):
+        counts = {label: c[name] for label, c in by_request.items() if c[name]}
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(counts.values()), "launches_by_request": counts,
+            "max_abs_err": err, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": None, "shape": [256, 784, 256],
+            "serving_shape": [16, 784, 256], "serving_ms": small["ms"],
+            "serving_plain_ms": small["plain_ms"],
+            "serving_bound_ms": small["bound_ms"],
+            "serving_bound_by": small["bound_by"], **extra,
+        }
+
+    rr, ep = rate_timing["reverse_rates"], rate_timing["euler_posterior"]
+    record = {"kernels": [
+        entry("fused_tau_leap_update", "ctdd_tpu_torch/csrc/fused_tau_leap.cu",
+              "ctdd_tpu/ops/fused_update.py:170", max_err, timing[256], timing[16]),
+        entry("reverse_rates", "ctdd_tpu_torch/csrc/reverse_rates.cu",
+              "ctdd_tpu/ops/pallas_kernels.py:81", rate_err["rate_abs"],
+              rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"]),
+        entry("euler_posterior", "ctdd_tpu_torch/csrc/euler_posterior.cu",
+              "ctdd_tpu/ops/pallas_kernels.py:137", rate_err["post_prob"],
+              ep[256], ep[16], max_log_err=rate_err["post_log"]),
+    ]}
+    for k in record["kernels"]:
+        if k["launches"] <= 0:
+            raise AssertionError(f"no served request launched {k['name']}")
     log("serving: " + json.dumps({
         "samples_per_s": 32 / elapsed, "batch": 16, "steps": 1000,
         **breakdown}))
+    log("serving_lbjf: " + json.dumps({
+        "samples_per_s": 16 / served["tauUnet_mnist LBJF corrector"][1],
+        "batch": 16, "steps": 1000, "corrector_steps": 2, **lbjf_breakdown}))
+    log("serving_other: " + json.dumps({
+        label: {"samples_per_s": 16 / secs, "seconds": secs}
+        for label, (_, secs) in served.items()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
-            f"{k['max_abs_err']}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-            f"bound {k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}) at N=256")
+            f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}) at N=256; "
+            f"{k['serving_ms']:.4f} ms, plain {k['serving_plain_ms']:.4f} ms, bound "
+            f"{k['serving_bound_ms'] * 1e3:.1f} us ({k['serving_bound_by']}) at N=16")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps(record))

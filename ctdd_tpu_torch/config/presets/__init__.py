@@ -6,6 +6,9 @@ import importlib
 
 _PRESETS = {
     "tauUnet_mnist": "ctdd_tpu_torch.config.presets.mnist_tau_unet",
+    "tauUnet_mnist_ll": "ctdd_tpu_torch.config.presets.mnist_tau_unet_ll",
+    "tauUnet_maze": "ctdd_tpu_torch.config.presets.maze_tau_unet",
+    "mlp_synthetic": "ctdd_tpu_torch.config.presets.synthetic_mlp",
 }
 
 

@@ -1,4 +1,5 @@
-"""Carry flax UNet weights across into the port's `UNetWrapper` state dict.
+"""Carry flax weights across into the port's state dicts: the UNet
+(`unet_params_from_flax`) and the residual MLP (`mlp_params_from_flax`).
 
 Flax numbers submodules by creation order within each parent (`Conv_0` is
 the UNet's input conv, `Conv_1` its output head; `ResBlock_i` follow the
@@ -8,7 +9,12 @@ same order (see networks/unet.py), so each flax path maps to one port name:
 - conv kernel HWIO -> Conv2d weight OIHW: permute(3, 2, 0, 1)
 - Dense kernel (in, out) -> Linear weight (out, in)
 - the ResBlock's 1x1 skip Dense -> a 1x1 Conv2d weight (out, in, 1, 1)
-- GroupNorm scale -> weight
+- GroupNorm / LayerNorm scale -> weight
+
+The residual MLP's Dense layers are numbered in the order of
+`ResidualMLP.__call__`: Dense_0 the input layer, then per layer i
+Dense_{3i+1} (FF in), Dense_{3i+2} (FF out), Dense_{3i+3} (FiLM), and last
+the output layer.
 """
 
 from __future__ import annotations
@@ -87,16 +93,14 @@ def _port_name(path: tuple) -> str:
     return f"{parent}.{child}", layer, rest[1]
 
 
-def unet_params_from_flax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """flax `UNetWrapper` params (nested dict of arrays) -> the port's
-    `UNetWrapper(cfg)` state dict. Raises on a leaf that is missing, left
+def _state_dict_from_flax(tree: Mapping, net, port_name) -> Dict[str, torch.Tensor]:
+    """Map every flax leaf through `port_name(path) -> (module, layer kind,
+    leaf)` onto `net`'s state dict. Raises on a leaf that is missing, left
     over or of the wrong shape."""
-    from ctdd_tpu_torch.networks.unet import UNetWrapper
-
-    want = {k: v.shape for k, v in UNetWrapper(cfg).state_dict().items()}
+    want = {k: v.shape for k, v in net.state_dict().items()}
     sd = {}
     for path, a in _flatten(tree).items():
-        module, layer, leaf = _port_name(path)
+        module, layer, leaf = port_name(path)
         name, value = _leaf(layer, leaf, a)
         key = f"{module}.{name}"
         if key not in want:
@@ -111,3 +115,46 @@ def unet_params_from_flax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"no flax leaf for port parameters {missing}")
     return sd
+
+
+def unet_params_from_flax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """flax `UNetWrapper` params (nested dict of arrays) -> the port's
+    `UNetWrapper(cfg)` state dict. Raises on a leaf that is missing, left
+    over or of the wrong shape."""
+    from ctdd_tpu_torch.networks.unet import UNetWrapper
+
+    return _state_dict_from_flax(tree, UNetWrapper(cfg), _port_name)
+
+
+def mlp_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax `ResidualMLP` params (nested dict of arrays) -> the state dict of
+    the port's `ResidualMLP` `net`. Raises on a leaf that is missing, left
+    over or of the wrong shape."""
+    num_layers = len(net.norms)
+
+    def port_name(path: tuple):
+        bad = KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        if len(path) == 3 and path[0] == "TimeEmbedMLP_0":
+            if path[1] not in ("Dense_0", "Dense_1"):
+                raise bad
+            return f"temb.{path[1].lower()}", "dense", path[2]
+        if len(path) != 2:
+            raise bad
+        m = re.fullmatch(r"(Dense|LayerNorm)_(\d+)", path[0])
+        if not m:
+            raise bad
+        kind, idx = m.group(1), int(m.group(2))
+        if kind == "LayerNorm":
+            if idx >= num_layers:
+                raise bad
+            return f"norms.{idx}", "norm", path[1]
+        if idx == 0:
+            return "dense_in", "dense", path[1]
+        if idx == 3 * num_layers + 1:
+            return "dense_out", "dense", path[1]
+        if idx > 3 * num_layers + 1:
+            raise bad
+        layer, part = divmod(idx - 1, 3)
+        return f"{('ff_in', 'ff_out', 'films')[part]}.{layer}", "dense", path[1]
+
+    return _state_dict_from_flax(tree, net, port_name)

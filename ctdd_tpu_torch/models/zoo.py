@@ -1,8 +1,8 @@
 """The registered model zoo: network wrapper x forward process.
 
 Counterpart of ctdd_tpu/models/zoo.py, for the entries built on the UNet
-wrapper (`_unet_paul`); they differ only in the process. Registered names
-match the JAX zoo so its configs resolve unchanged.
+wrapper (`_unet_paul`) and on the residual MLP (`_residual_mlp`). Registered
+names match the JAX zoo so its configs resolve unchanged.
 """
 
 from __future__ import annotations
@@ -17,12 +17,25 @@ def _unet_paul(cfg):
     return UNetWrapper(cfg)
 
 
+def _residual_mlp(cfg):
+    from ctdd_tpu_torch.networks.mlp import ResidualMLP
+
+    m = cfg.model
+    return ResidualMLP(
+        D=cfg.data.shape[0], S=cfg.data.S, num_layers=m.num_layers,
+        d_model=m.d_model, hidden_dim=m.hidden_dim,
+        time_scale_factor=m.time_scale_factor, temb_dim=m.temb_dim,
+    )
+
+
 _ZOO = {
     # name                                   (network, process)
     "UniformRateImageX0PredEMA":              (_unet_paul, "UniformRate"),
     "GaussianTargetRateImageX0PredEMAPaul":   (_unet_paul, "GaussianTargetRate"),
     "UniformRateUnetEMA":                     (_unet_paul, "UniformRate"),
     "UniVarUnetEMA":                          (_unet_paul, "UniformVariantRate"),
+    "GaussianRateResidualMLP":                (_residual_mlp, "GaussianTargetRate"),
+    "UniformRateResMLP":                      (_residual_mlp, "UniformRate"),
 }
 
 

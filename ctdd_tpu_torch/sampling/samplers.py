@@ -1,15 +1,23 @@
-"""Reverse-CTMC samplers: TauL on the p0t path.
+"""Reverse-CTMC samplers on the p0t path: TauL, LBJF, MidPointTauL.
 
-Counterpart of the TauL pieces of ctdd_tpu/sampling/samplers.py. The JAX
-package scans a compiled step over a precomputed time grid; here the same
-step runs in an eager Python loop over the same float32 grid. With
-`sampler.use_fused_update` every step's update is one launch of the fused
-tau-leap kernel (ops/fused_update.py); otherwise it is the plain chain of
-reverse rates and Poisson jumps.
+Counterpart of those samplers in ctdd_tpu/sampling/samplers.py, correctors
+included. The JAX package scans a compiled step over a precomputed time
+grid; here the same step runs in an eager Python loop over the same float32
+grid.
+
+- TauL: with `sampler.use_fused_update` every step's update is one launch of
+  the fused tau-leap kernel (ops/fused_update.py); otherwise reverse rates
+  (ops/rate_kernels.py) and Poisson jumps.
+- LBJF: reverse rates, then the Euler posterior (both ops/rate_kernels.py)
+  and a Gumbel-max categorical draw.
+- MidPointTauL: fused, two launches of the fused kernel per step ("expected"
+  over h/2, then "poisson" from the midpoint state); unfused, two
+  reverse-rate passes.
 
 Randomness comes from an explicit `torch.Generator` on the model's device:
-it draws x_T, the unfused path's uniforms and, once per batch, the base word
-of the fused kernel's Philox key (the second word is the step index).
+it draws x_T, the uniforms and Gumbel noise of the unfused updates and, once
+per batch, the base word of the fused kernel's Philox key (the second word
+is the step index).
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import numpy as np
 import torch
 
 from ctdd_tpu_torch import registry
-from ctdd_tpu_torch.ops import indexing
+from ctdd_tpu_torch.ops import indexing, rate_kernels
 from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
 
 TAULDR_LOSSES = ("CTElbo", "NLL", "CTElboLambda", "NLLOriginal")
@@ -55,6 +63,30 @@ def get_initial_samples(
         draws = torch.multinomial(probs, N * D, replacement=True, generator=generator)
         return draws.reshape(N, D).to(torch.int32)
     raise ValueError(f"unrecognized initial dist {initial_dist}")
+
+
+def reverse_rates(
+    model, params, logits, x, t, *, rate_param: str, logit_type: str, eps: float,
+):
+    """R̂_t(x -> ·) per dim with a timestep per sample, t (N,):
+    (rates, ratio), both (N, D, S). The rates come from the reverse-rates
+    kernel, so their entry at x is 0; the ratio is not masked."""
+    if rate_param != "p0t":
+        raise NotImplementedError(
+            f"rate_param={rate_param!r}: the CRM ratio path is ported with "
+            "the CRM losses in a later slice"
+        )
+    qt0 = model.transition(t)  # (N, S, S)
+    rate = model.rate(t)
+    qt0_denom = indexing.cols(qt0, x) + eps  # q_{t|0}(x | x0) over x0
+    forward_rates = indexing.cols(rate, x)  # R(·, x) over target states
+    rates = rate_kernels.reverse_rates(logits, qt0_denom, qt0, forward_rates, x)
+    # the kernel keeps the ratio to itself; callers that want it (the
+    # losses) get the plain product
+    ratio = torch.einsum(
+        "bds,bsk->bdk", torch.softmax(logits, dim=-1) / qt0_denom, qt0
+    )
+    return rates, ratio
 
 
 def _shared_mats(process, t: float):
@@ -116,6 +148,23 @@ def _poisson_jump_update(generator, x, rates, h, S, is_ordinal: bool,
     return torch.clamp(x + overall_jump, 0, S - 1).to(torch.int32)
 
 
+def gumbel_noise(generator, shape, device):
+    """Standard Gumbel draws -log(-log(u)), finite for every u in [0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def _categorical_euler_update(generator, x, rev_rates, h, g=None):
+    """LBJF / Euler categorical step: the Euler posterior's log-probs, then
+    a Gumbel-max draw argmax(logp + g); `g` (N, D, S) may be injected, else
+    it is drawn from `generator`."""
+    logp = rate_kernels.euler_posterior(rev_rates, x, h)
+    if g is None:
+        g = gumbel_noise(generator, logp.shape, logp.device)
+    return torch.argmax(logp + g, dim=-1).to(torch.int32)
+
+
 def _time_grid(max_t: float, min_t: float, num_steps: int):
     """(t_k, h_k) float32 pairs: float64 linspace ⊕ [0], then cast."""
     ts = np.concatenate((np.linspace(max_t, min_t, num_steps), np.array([0.0])))
@@ -160,11 +209,6 @@ class _SamplerBase:
         # (the shipped configs: corrector_entry_time=0.0)
         if self.corrector_entry_time < self.min_t:
             self.num_corrector_steps = 0
-        if self.num_corrector_steps > 0:
-            raise NotImplementedError(
-                "a live corrector (corrector_entry_time >= min_t) is ported "
-                "with the LBJF and corrector path in a later slice"
-            )
         self.use_fused_update = bool(cfg.sampler.get("use_fused_update", False))
         # sampler.remat_scan_body and sampler.host_chunk_steps shape the
         # JAX package's compiled scan; the eager loop here has neither
@@ -177,6 +221,42 @@ class _SamplerBase:
             and not self.exact_poisson
             and self.rate_param == "p0t"
         )
+
+    def _logits(self, model, params, x, t: float):
+        t_ones = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+        return model.apply(params, x, t_ones)
+
+    def _rev_rates(self, model, params, x, t: float, mats=None):
+        """Shared-timestep reverse rates through the reverse-rates kernel,
+        (N, D, S) with the entry at x already 0 (the JAX package's
+        `_rev_rates` leaves it; every caller masks it). `mats` takes the
+        (qt0, rate) tables at t where the caller has them already."""
+        if self.rate_param != "p0t":
+            raise NotImplementedError(
+                f"rate_param={self.rate_param!r}: the CRM ratio path is "
+                "ported with the CRM losses in a later slice"
+            )
+        logits = self._logits(model, params, x, t)
+        qt0, rate = mats if mats is not None else _shared_mats(model.process, t)
+        xl = x.long()
+        qt0_denom = qt0.t()[xl] + self.eps_ratio  # [n, d, s] = qt0[s, x[n, d]]
+        forward_rates = rate.t()[xl]  # R(s, x[n, d])
+        return rate_kernels.reverse_rates(logits, qt0_denom, qt0, forward_rates, x)
+
+    def _corrector_rates(self, model, params, x, t: float):
+        """Corrector rates R̂(x, ·) + R(x, ·), 0 at x."""
+        mats = _shared_mats(model.process, t)
+        rev = self._rev_rates(model, params, x, t, mats)
+        transpose_forward = mats[1][x.long()]  # R(x, ·) rows
+        return indexing.zero_at(transpose_forward + rev, x)
+
+    def time_grid(self):
+        """(t_k, h_k) of the steps: float32, as the JAX scan carries them."""
+        return _time_grid(self.max_t, self.min_t, self.num_steps)
+
+    def _changes_per(self, N: int) -> int:
+        """What a step's count of changed dims is divided by."""
+        return N
 
     @torch.inference_mode()
     def sample(self, model, params, generator: torch.Generator, N: int,
@@ -193,21 +273,29 @@ class _SamplerBase:
         return x.cpu().numpy().astype(int), changes.cpu().numpy()
 
     def _sample_loop(self, model, params, generator, N):
-        """init -> num_steps updates -> argmax denoise."""
+        """init -> one update per grid point (each followed by the corrector
+        steps once t <= corrector_entry_time) -> argmax denoise."""
         device = model.device
         x = get_initial_samples(
             generator, N, self.D, self.S, self.initial_dist,
             self.initial_dist_std, device=device,
         )
-        ts, hs = _time_grid(self.max_t, self.min_t, self.num_steps)
+        ts, hs = self.time_grid()
         # one draw per batch; the fused kernel's key is (base, step)
         base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=device).item())
+        # float32 on both sides, as the JAX scan compares them
+        entry = np.float32(self.corrector_entry_time)
         changes = []
-        for i in range(self.num_steps):
-            x_new = self.step(model, params, x, float(ts[i]), float(hs[i]),
-                              generator=generator, seed=base | (i << 32))
-            changes.append(torch.sum(x != x_new) / N)
+        for i in range(len(ts)):
+            t, h = float(ts[i]), float(hs[i])
+            x_new = self.step(model, params, x, t, h, generator=generator,
+                              seed=base | (i << 32))
+            changes.append(torch.sum(x != x_new) / self._changes_per(N))
+            if self.num_corrector_steps > 0 and ts[i] <= entry:
+                for _ in range(self.num_corrector_steps):
+                    x_new = self.corrector_step(model, params, x_new, t, h,
+                                                generator=generator)
             x = x_new
         if self.loss_name in TAULDR_LOSSES:
             x = _denoise_argmax(model, params, x, self.min_t, N)
@@ -216,6 +304,12 @@ class _SamplerBase:
     def step(self, model, params, x, t: float, h: float, *, generator=None,
              seed: int = 0, u=None):
         raise NotImplementedError
+
+    def corrector_step(self, model, params, x, t: float, h: float, *,
+                       generator=None, u=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no corrector branch"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -231,24 +325,125 @@ class TauL(_SamplerBase):
 
         Fused: one kernel launch keyed by `seed`. Unfused: uniforms from
         `generator`. `u` (N, D, S) injects the uniforms on either branch."""
-        t_ones = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
-        logits = model.apply(params, x, t_ones)
         if self._fused_applicable():
+            logits = self._logits(model, params, x, t)
             qt0, rate = _shared_mats(model.process, t)
             return fused_tau_leap_update(
                 logits, x, x, qt0, rate, h, self.eps_ratio, seed,
                 mode="poisson", is_ordinal=self.is_ordinal, u=u,
             )
-        rev = reverse_rates_shared(
-            model.process, logits, x, t, rate_param=self.rate_param,
-            logit_type=self.logit_type, eps=self.eps_ratio,
-        )
-        rev = rev * indexing.onehot_mask(x, self.S)
+        rev = self._rev_rates(model, params, x, t)  # 0 at x
         return _poisson_jump_update(
             generator, x, rev, h, self.S, self.is_ordinal, self.exact_poisson,
             u=u,
         )
 
+    def corrector_step(self, model, params, x, t: float, h: float, *,
+                       generator=None, u=None):
+        """One corrector step: Poisson jumps at the corrector rates."""
+        corrector = self._corrector_rates(model, params, x, t)
+        return _poisson_jump_update(
+            generator, x, corrector, h, self.S, self.is_ordinal,
+            self.exact_poisson, u=u,
+        )
 
-for _alias in ("ElboTauL", "TauLeaping"):
-    registry.samplers.alias(_alias, "TauL")
+
+# ---------------------------------------------------------------------------
+# LBJF: Euler / locally-balanced jump factorization
+# ---------------------------------------------------------------------------
+
+
+@registry.samplers.register
+class LBJF(_SamplerBase):
+    def step(self, model, params, x, t: float, h: float, *, generator=None,
+             seed: int = 0, g=None):
+        """One Euler step: reverse rates, posterior, categorical draw.
+        `g` (N, D, S) injects the Gumbel noise."""
+        rev = self._rev_rates(model, params, x, t)
+        return _categorical_euler_update(generator, x, rev, h, g=g)
+
+    def corrector_step(self, model, params, x, t: float, h: float, *,
+                       generator=None, g=None):
+        """One corrector step: an Euler step at the corrector rates."""
+        corrector = self._corrector_rates(model, params, x, t)
+        return _categorical_euler_update(generator, x, corrector, h, g=g)
+
+
+# ---------------------------------------------------------------------------
+# MidPointTauL: midpoint tau-leaping
+# ---------------------------------------------------------------------------
+
+
+@registry.samplers.register
+class MidPointTauL(_SamplerBase):
+    """Midpoint tau-leaping; the state-change matrix is the ordinal
+    difference, state_change[s, x] = s - x."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_corrector_steps = 0  # the midpoint scheme has no corrector
+
+    def time_grid(self):
+        """float32 t_k and the constant float64 h: steps run while
+        t - h/2 > min_t."""
+        h = (self.max_t - self.min_t) / self.num_steps
+        n_steps = int(np.ceil((self.max_t - 0.5 * h - self.min_t) / h - 1e-9))
+        return ((self.max_t - h * np.arange(n_steps)).astype(np.float32),
+                np.full(n_steps, h))
+
+    def _changes_per(self, N: int) -> int:
+        return N * self.D
+
+    def _state_change(self, x):
+        iota = torch.arange(self.S, dtype=torch.float32, device=x.device)
+        return iota[None, None, :] - x[:, :, None].float()
+
+    def step(self, model, params, x, t: float, h: float, *, generator=None,
+             seed: int = 0, u=None):
+        """One midpoint step: the expected drift over h/2 gives x', then a
+        full Poisson step from x at the rates of (x', t - h/2). Fused, each
+        half is one launch of the fused kernel. `u` (N, D, S) injects the
+        Poisson step's uniforms."""
+        S = self.S
+        t_05 = float(np.float32(t) - np.float32(0.5 * h))  # float32, as t is
+        if self._fused_applicable():
+            logits = self._logits(model, params, x, t)
+            qt0, rate = _shared_mats(model.process, t)
+            x_prime = fused_tau_leap_update(
+                logits, x, x, qt0, rate, 0.5 * h, self.eps_ratio, seed,
+                mode="expected", is_ordinal=self.is_ordinal,
+            )
+            logits_p = self._logits(model, params, x_prime, t_05)
+            qt0_05, rate_05 = _shared_mats(model.process, t_05)
+            return fused_tau_leap_update(
+                logits_p, x_prime, x, qt0_05, rate_05, h, self.eps_ratio, seed,
+                mode="poisson", is_ordinal=self.is_ordinal, u=u,
+            )
+
+        # half-step expected drift -> x'
+        rev = self._rev_rates(model, params, x, t)  # 0 at x
+        change = torch.round(
+            0.5 * h * torch.sum(rev * self._state_change(x), dim=-1)
+        ).to(torch.int32)
+        x_prime = torch.clamp(x + change, 0, S - 1)
+
+        # full step with rates at (x', t - h/2), applied from x
+        rev_p = self._rev_rates(model, params, x_prime, t_05)  # 0 at x'
+        if self.exact_poisson:
+            flips = torch.poisson(rev_p * h, generator=generator).to(torch.int32)
+        else:
+            flips = poisson_inversion(generator, rev_p * h, u=u)
+        if not self.is_ordinal:
+            tot = torch.sum(flips, dim=-1, keepdim=True)
+            flips = flips * (tot <= 1)
+        avg_offset = torch.sum(
+            flips.float() * self._state_change(x_prime), dim=-1
+        ).to(torch.int32)
+        return torch.clamp(x + avg_offset, 0, S - 1).to(torch.int32)
+
+
+for _alias, _target in (
+    ("ElboTauL", "TauL"), ("TauLeaping", "TauL"), ("CRMLBJF", "LBJF"),
+    ("LBJFSampling", "LBJF"), ("CRMebmLBJF", "LBJF"),
+):
+    registry.samplers.alias(_alias, _target)

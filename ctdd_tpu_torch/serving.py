@@ -61,11 +61,12 @@ class SamplerService:
         return samples
 
     def generate(self, n: int, label=None, cfg_scale: float = 0.0) -> np.ndarray:
-        """n samples from fixed-size batches."""
-        if label is not None or cfg_scale:
-            raise NotImplementedError(
-                "label-conditional serving and CFG belong to DiT, ported in "
-                "a later slice"
+        """n samples from fixed-size batches. `label` needs a
+        label-conditional model (none is ported yet); `cfg_scale` only acts
+        with a label and is ignored without one."""
+        if label is not None and not self.has_label:
+            raise ValueError(
+                f"model {self.cfg.model.name} is not label-conditional"
             )
         chunks = []
         produced = 0

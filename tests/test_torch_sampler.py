@@ -150,12 +150,24 @@ def test_oracle_converges_to_class_zero(fused, exact_poisson, loss_name):
 
 
 def test_later_slices_raise_not_implemented():
+    """A live corrector constructs and runs (its steps follow every
+    predictor step at or below the entry time); labels still wait for DiT."""
     _, tcfg = flagship_cfgs("tiny")
+    tcfg.sampler.num_steps = 10
+    tcfg.sampler.num_corrector_steps = 3
     tcfg.sampler.corrector_entry_time = 0.5  # a live corrector
-    with pytest.raises(NotImplementedError, match="corrector"):
-        ts.get_sampler(tcfg)
-    _, tcfg = flagship_cfgs("tiny")
     sampler = ts.get_sampler(tcfg)
+    assert sampler.num_corrector_steps == 3
     model = create_model(tcfg)
+    calls = []
+    inner = sampler.corrector_step
+    sampler.corrector_step = lambda *a, **kw: (calls.append(a[3]), inner(*a, **kw))[1]
+    samples, changes = sampler.sample(model, model.net,
+                                      torch.Generator().manual_seed(0), 2)
+    grid, _ = ts._time_grid(1.0, tcfg.sampler.min_t, 10)
+    live = [float(t) for t in grid if t <= np.float32(0.5)]
+    assert 0 < len(live) < 10 and calls == [t for t in live for _ in range(3)]
+    assert samples.shape == (2, 64) and changes.shape == (10,)
+    assert samples.min() >= 0 and samples.max() < tcfg.data.S
     with pytest.raises(NotImplementedError, match="DiT"):
         sampler.sample(model, model.net, torch.Generator(), 2, label=[0, 1])

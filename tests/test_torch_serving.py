@@ -10,6 +10,7 @@ import threading
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -69,6 +70,72 @@ def test_sampler_service_and_http(tmp_path):
         server.server_close()
         t.join(timeout=10)
     assert not t.is_alive()
+
+
+class _RecordingSampler:
+    """Stands in for the JAX sampler: records what `sample` was given."""
+
+    def __init__(self, D):
+        self.D, self.calls = D, []
+
+    def sample(self, model, params, key, N, **kwargs):
+        self.calls.append(kwargs)
+        return np.zeros((N, self.D), int), None
+
+
+def _jax_service(cfg):
+    """The JAX package's service around an unconditional model, without its
+    checkpoint and compile: only the request handling is under test."""
+    import jax
+    from ctdd_tpu.serving import SamplerService as JaxService
+
+    svc = object.__new__(JaxService)
+    svc.cfg, svc.batch, svc.has_label, svc.step = cfg, 4, False, 7
+    svc.model = svc.params = None
+    svc.sampler = _RecordingSampler(cfg.model.concat_dim)
+    svc._key, svc._lock = jax.random.PRNGKey(0), threading.Lock()
+    return svc
+
+
+def _statuses(server, queries):
+    port = server.server_address[1]
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    out = {}
+    try:
+        for q in queries:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/generate?{q}", timeout=120) as r:
+                    out[q] = (r.status, json.loads(r.read()))
+            except urllib.error.HTTPError as e:
+                out[q] = (e.code, json.loads(e.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=10)
+    return out
+
+
+def test_label_and_cfg_scale_on_an_unconditional_model_as_the_jax_service(tmp_path):
+    """`label` on an unconditional model is a bad request (400) and
+    `cfg_scale` without a label is ignored (200), in both packages."""
+    from ctdd_tpu.serving import run_http_server as jax_run_http_server
+
+    cfg, path, _ = _make_ckpt(tmp_path)
+    queries = ["n=2&label=0", "n=2&cfg_scale=1.5", "n=2"]
+    jsvc = _jax_service(cfg)
+    want = _statuses(jax_run_http_server(jsvc, port=0), queries)
+    svc = SamplerService(cfg, path, batch=4, device="cpu")
+    got = _statuses(run_http_server(svc, port=0), queries)
+    assert [want[q][0] for q in queries] == [400, 200, 200]
+    assert [got[q][0] for q in queries] == [400, 200, 200]
+    assert got["n=2&label=0"][1] == want["n=2&label=0"][1] == {
+        "error": f"model {cfg.model.name} is not label-conditional"}
+    assert got["n=2&cfg_scale=1.5"][1]["shape"] == [2, cfg.model.concat_dim]
+    assert jsvc.sampler.calls == [{}, {}]  # the JAX service dropped cfg_scale
+    with pytest.raises(ValueError, match="not label-conditional"):
+        svc.generate(2, label=[0])
 
 
 def test_service_without_cuda_refuses_the_default_device(tmp_path):
