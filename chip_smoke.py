@@ -1,13 +1,20 @@
 """Drive the PyTorch port on one NVIDIA GPU and hold its kernels to their
 plain versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
+
+`--kernels-only` stops after the phases that build, check and time the
+kernels (1-4, 8, 9) and prints no result lines: a quick check of a kernel
+change.
 
 Phases (any fault exits non-zero; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile every CUDA kernel of the port from csrc/, in parallel
-  3. kernels  fused tau-leap kernel vs its plain PyTorch version on the card
-  4. timing   kernel, plain version and bound at N=256, D=784, S=256
+  2. build    compile every CUDA kernel of the port from csrc/, in parallel;
+              count the tensor-core MMA ops in each binary
+  3. kernels  fused tau-leap kernel vs its plain PyTorch version on the card,
+              S in {256, 8, 3, 2}, row counts below and across its tile
+  4. timing   kernel, plain version and bound at N=256 and N=16 (D=784,
+              S=256): device time from a trace, and a back-to-back loop
   5. unet     full-width logits on the card vs the port's CPU logits, and
               tau-leap and LBJF steps on the card vs the CPU with the same
               injected noise
@@ -17,6 +24,7 @@ Phases (any fault exits non-zero; nothing is caught):
   8. rates    reverse-rates and Euler-posterior kernels vs their plain
               versions, per-sample and shared tables, real process tables
   9. timing   both kernels, plain versions and bounds at N=256 and N=16
+              (phases 8 and 9 run straight after 4)
  10. steps    where a batch-16 LBJF step's time goes
  11. serving  three more seeded checkpoints over HTTP, each with its exact
               launch counts: the flagship with LBJF and a live corrector
@@ -42,6 +50,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RATE_ROW_TOL = 2e-5  # reverse rates: share of a row's largest |value|
 POST_PROB_TOL = 2e-6  # Euler posterior: probabilities exp(out)
@@ -61,6 +70,21 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(report: str) -> str:
+    """`ptxas -v` in one line: registers of every kernel instantiation (a
+    template gives several), the largest spill, static shared memory."""
+    import re
+
+    if not report:
+        return "already built"
+    regs = re.findall(r"Used (\d+) registers", report)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
+    smem = re.findall(r"(\d+) bytes smem", report)
+    return (f"ptxas -v: registers {', '.join(regs)}; spill stores at most "
+            f"{max(spills, default=0)} bytes; static shared memory "
+            f"{', '.join(smem) or '0'} bytes (the rest is dynamic)")
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -75,17 +99,51 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of `fn`: every kernel it launches, summed from
+    a torch.profiler trace and divided by the calls. Unlike `cuda_ms` it
+    leaves out the time the card waits for the host between launches, which
+    is most of a back-to-back loop at the serving shape (N=16). 0.0 where
+    the profiler cannot trace the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
+def timed(kernel, plain, iters: int) -> dict:
+    """A kernel's wrapper and its plain version: `loop_ms` is a back-to-back
+    loop between CUDA events, `device_ms` the device time alone. `ms` is the
+    device time where the profiler traced the card, else the loop's."""
+    out = dict(loop_ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+               plain_loop_ms=cuda_ms(plain, max(iters // 10, 3)),
+               plain_device_ms=device_ms(plain, max(iters // 10, 3)))
+    traced = bool(out["device_ms"] and out["plain_device_ms"])
+    out.update(ms=out["device_ms" if traced else "loop_ms"],
+               plain_ms=out["plain_device_ms" if traced else "plain_loop_ms"],
+               timed_by="device trace" if traced else "events around a loop")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3/4 inputs: real GaussianTargetRate tables at one sampler step
 # ---------------------------------------------------------------------------
 
 
 def fused_inputs(N, D, S, step, seed, dev):
-    from ctdd_tpu_torch.ops.forward_process import make_gaussian_target
-    from ctdd_tpu_torch.sampling.samplers import _shared_mats, _time_grid
+    """Tables of the serving path that runs this S, at `step` thousandths
+    of its time grid."""
+    from ctdd_tpu_torch.sampling.samplers import _shared_mats
 
-    proc = make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0, device=dev)
-    ts, hs = _time_grid(1.0, 0.01, 1000)
+    proc, (ts, hs) = rate_process(S, dev)
+    step = min(step * len(ts) // 1000, len(ts) - 1)
     qt0, rate = _shared_mats(proc, float(ts[step]))
     g = torch.Generator(device=dev).manual_seed(seed)
     logits = 2.0 * torch.randn((N, D, S), generator=g, device=dev)
@@ -99,7 +157,11 @@ def phase_kernels(dev) -> float:
     from ctdd_tpu_torch.ops import fused_update as fu
 
     worst = 0
-    cases = [(16, 784, 256), (3, 77, 256), (16, 64, 8), (3, 77, 8)]
+    # the serving shape, rows ragged against the kernel's 96-row tile, fewer
+    # rows than one warp's 16, and the small state spaces (maze S=3, S=2)
+    cases = [(16, 784, 256), (3, 77, 256), (16, 64, 8), (3, 77, 8),
+             (1, 5, 256), (1, 5, 8), (16, 225, 3), (1, 5, 3), (5, 32, 2)]
+    flipped = 0.0
     for N, D, S in cases:
         for step, h_scale in ((100, 1.0), (500, 1.0), (500, 30.0), (950, 1.0)):
             logits, x, qt0, rate, u, h = fused_inputs(N, D, S, step, N * D + step, dev)
@@ -118,6 +180,7 @@ def phase_kernels(dev) -> float:
                     diff = (k - p).abs()
                     frac = (diff > 0).float().mean().item()
                     worst = max(worst, int(diff.max().item()))
+                    flipped = max(flipped, frac)
                     moved = (p != x).float().mean().item()
                     if frac > MAX_FLIP_FRAC or diff.max().item() > 1:
                         raise AssertionError(
@@ -131,7 +194,8 @@ def phase_kernels(dev) -> float:
         a = fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 11)
         b = fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 11)
         c = fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 11 | (1 << 32))
-        if not torch.equal(a, b) or torch.equal(a, c):
+        # another key word must change the draws wherever enough states move
+        if not torch.equal(a, b) or (torch.equal(a, c) and int((a != x).sum()) >= 8):
             raise AssertionError("Philox stream not a function of the seed")
         if N * D < 10000:
             continue
@@ -147,22 +211,34 @@ def phase_kernels(dev) -> float:
             raise AssertionError(f"mean |jump| kernel {jk / 8} vs plain {jp / 8}")
         log(f"  N={N} D={D} S={S} Philox: seeded, mean |jump| kernel "
             f"{jk / 8:.4f} vs plain {jp / 8:.4f}")
-    return float(worst)
+    log(f"  largest share of states that differ from the plain version: "
+        f"{flipped:.3e} (allowed {MAX_FLIP_FRAC:.0e}), by at most {worst}")
+    return float(worst), flipped
 
 
 def phase_timing(dev) -> dict:
     from ctdd_tpu_torch.ops import fused_update as fu
+    from ctdd_tpu_torch.ops import rate_kernels as rk
 
     out = {}
     for N in (256, 16):
         D, S = 784, 256
         logits, x, qt0, rate, _, h = fused_inputs(N, D, S, 500, 1, dev)
         iters = 20 if N == 256 else 200
-        ms = cuda_ms(lambda: fu.fused_tau_leap_update(
-            logits, x, x, qt0, rate, h, 1e-9, 3), iters)
         gen = torch.Generator(device=dev).manual_seed(0)
-        plain_ms = cuda_ms(lambda: fu.fused_tau_leap_update_plain(
-            logits, x, x, qt0, rate, h, 1e-9, generator=gen), max(iters // 10, 3))
+        t = timed(lambda: fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 3),
+                  lambda: fu.fused_tau_leap_update_plain(
+                      logits, x, x, qt0, rate, h, 1e-9, generator=gen), iters)
+        # the "expected" mode has no draws and no Poisson series; how much
+        # the series costs depends on the expected jumps per row, sum(rev * h)
+        def expected():
+            return fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 3,
+                                            mode="expected")
+
+        expected_ms = device_ms(expected, iters) or cuda_ms(expected, iters)
+        xl = x.long()
+        jumps_per_row = h * rk.reverse_rates_plain(
+            logits, qt0.t()[xl] + 1e-9, qt0, rate.t()[xl], x).sum(-1).mean().item()
         # each input read once, the output written once; the ratio product
         # at the bf16 tensor-core rate
         nbytes = (logits.numel() * 4 + 2 * x.numel() * 4 + 2 * S * S * 4
@@ -170,10 +246,14 @@ def phase_timing(dev) -> dict:
         flops = 2.0 * N * D * S * S
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOP_PER_S * 1e3
-        out[N] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        out[N] = dict(**t, bound_ms=max(bytes_ms, ops_ms),
                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                      bytes=nbytes, flops=flops)
-        log(f"  N={N} D={D} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      bytes=nbytes, flops=flops, expected_mode_ms=expected_ms,
+                      expected_jumps_per_row=jumps_per_row)
+        log(f"  N={N} D={D} S={S}: kernel {t['ms']:.4f} ms by {t['timed_by']} "
+            f"({t['loop_ms']:.4f} ms per turn of a loop; mode \"expected\" "
+            f"{expected_ms:.4f} ms; {jumps_per_row:.3f} expected jumps per row), "
+            f"plain {t['plain_ms']:.4f} ms, "
             f"bound {out[N]['bound_ms'] * 1e3:.1f} us ({out[N]['bound_by']}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
     return out
@@ -238,7 +318,8 @@ def phase_rate_kernels(dev) -> dict:
 
     worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
     tiny = torch.finfo(torch.float32).tiny
-    for N, D, S in [(16, 784, 256), (3, 77, 256), (16, 225, 3), (5, 32, 2), (3, 77, 8)]:
+    for N, D, S in [(16, 784, 256), (3, 77, 256), (16, 225, 3), (5, 32, 2), (3, 77, 8),
+                    (2, 129, 256), (1, 5, 256), (2, 129, 12)]:
         iota = torch.arange(S, device=dev)
         for per_sample, fracs in ((True, (0.1, 0.5, 0.95)), (False, (0.1,)),
                                   (False, (0.5,)), (False, (0.95,))):
@@ -298,30 +379,32 @@ def phase_rate_timing(dev) -> dict:
         nds = logits.numel()
         cases = {
             # three (N, D, S) inputs, x, the table; one output. The product
-            # stays float32, so its rate is the f32 one outside the tensor cores
+            # keeps float32 accuracy on the tensor cores as three TF32
+            # products (big*big + big*small + small*big)
             "reverse_rates": (
                 lambda: rk.reverse_rates(logits, qc, qt0, rc, x),
                 lambda: rk.reverse_rates_plain(logits, qc, qt0, rc, x),
-                4 * (3 * nds + x.numel() + S * S + nds), 2.0 * N * D * S * S),
+                4 * (3 * nds + x.numel() + S * S + nds),
+                3 * 2.0 * N * D * S * S, TF32_FLOP_PER_S, "TF32"),
             # one input, x, one output; ~8 operations per entry
             "euler_posterior": (
                 lambda: rk.euler_posterior(rev, x, h),
                 lambda: rk.euler_posterior_plain(rev, x, h),
-                4 * (nds + x.numel() + nds), 8.0 * nds),
+                4 * (nds + x.numel() + nds), 8.0 * nds, F32_FLOP_PER_S, "f32"),
         }
-        for name, (kernel, plain, nbytes, flops) in cases.items():
-            ms = cuda_ms(kernel, iters)
-            plain_ms = cuda_ms(plain, max(iters // 10, 3))
+        for name, (kernel, plain, nbytes, flops, rate, rate_name) in cases.items():
+            t = timed(kernel, plain, iters)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / F32_FLOP_PER_S * 1e3
+            ops_ms = flops / rate * 1e3
             out[name][N] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                **t, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=nbytes, flops=flops)
-            log(f"  {name} N={N} D={D} S={S}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {out[name][N]['bound_ms'] * 1e3:.1f} us "
+            log(f"  {name} N={N} D={D} S={S}: kernel {t['ms']:.4f} ms by "
+                f"{t['timed_by']} ({t['loop_ms']:.4f} ms per turn of a loop), plain "
+                f"{t['plain_ms']:.4f} ms, bound {out[name][N]['bound_ms'] * 1e3:.1f} us "
                 f"({out[name][N]['bound_by']}: {nbytes / 1e6:.1f} MB, "
-                f"{flops / 1e9:.2f} GFLOP at the f32 rate)")
+                f"{flops / 1e9:.2f} GFLOP at the {rate_name} rate)")
     return out
 
 
@@ -495,7 +578,7 @@ def serve_request(dev, tmpdir, label, cfg, n, expected, seed):
     from ctdd_tpu_torch.utils.bookkeeping import save_checkpoint
 
     torch.manual_seed(seed)
-    model = create_model(cfg)
+    model = create_model(cfg, device=dev)
     sd = model.net.state_dict()
     n_params = sum(v.numel() for v in sd.values())
     path = save_checkpoint(f"{tmpdir}/{label}.pt", sd, sd, step=0, config=cfg)
@@ -604,15 +687,29 @@ def main() -> int:
     reports = _build.build(["fused_tau_leap", "reverse_rates", "euler_posterior"])
     seconds = time.perf_counter() - t0
     for name, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"  {name}: {' | '.join(regs) or 'already built'}")
+        log(f"  {name}: {ptxas_summary(rep)}")
     log(f"  built in {seconds:.2f} s")
+    for name in reports:
+        ops = _build.tensor_core_ops(name)
+        log(f"  {name}: tensor-core MMA ops in the binary: "
+            + ("not checked (no cuobjdump)" if ops is None else
+               ", ".join(f"{n} x {op}" for op, n in sorted(ops.items())) or "none"))
 
     log("[3] fused tau-leap kernel vs plain version")
-    max_err = phase_kernels(dev)
+    max_err, flip_frac = phase_kernels(dev)
 
     log("[4] timing")
     timing = phase_timing(dev)
+
+    log("[8] reverse-rates and Euler-posterior kernels vs plain versions")
+    rate_err = phase_rate_kernels(dev)
+
+    log("[9] timing of the rate kernels")
+    rate_timing = phase_rate_timing(dev)
+
+    if "--kernels-only" in sys.argv[1:]:
+        log(f"  kernels only: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     log("[5] UNet, tau-leap and LBJF steps, card vs CPU")
     phase_unet(dev)
@@ -620,12 +717,6 @@ def main() -> int:
     log("[6] TauL step breakdown")
     breakdown = phase_step_breakdown(
         dev, full_cfg(fused=True), {"fused_kernel_ms": "fused_tau_leap"})
-
-    log("[8] reverse-rates and Euler-posterior kernels vs plain versions")
-    rate_err = phase_rate_kernels(dev)
-
-    log("[9] timing of the rate kernels")
-    rate_timing = phase_rate_timing(dev)
 
     log("[10] LBJF step breakdown")
     lbjf_breakdown = phase_step_breakdown(
@@ -642,6 +733,12 @@ def main() -> int:
     by_request = {"tauUnet_mnist TauL fused n=20": launches,
                   **{label: counts for label, (counts, _) in served.items()}}
 
+    # device time of one launch inside a batch-16 step (torch.profiler),
+    # where the kernel's input is what the network has just written
+    in_step = {"fused_tau_leap_update": breakdown["fused_kernel_ms"],
+               "reverse_rates": lbjf_breakdown["reverse_rates_kernel_ms"],
+               "euler_posterior": lbjf_breakdown["euler_posterior_kernel_ms"]}
+
     def entry(name, source, replaces, err, big, small, **extra):
         counts = {label: c[name] for label, c in by_request.items() if c[name]}
         return {
@@ -650,16 +747,22 @@ def main() -> int:
             "max_abs_err": err, "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             "library_ms": None, "shape": [256, 784, 256],
+            "timed_by": big["timed_by"], "loop_ms": big["loop_ms"],
             "serving_shape": [16, 784, 256], "serving_ms": small["ms"],
+            "serving_loop_ms": small["loop_ms"],
             "serving_plain_ms": small["plain_ms"],
             "serving_bound_ms": small["bound_ms"],
-            "serving_bound_by": small["bound_by"], **extra,
+            "serving_bound_by": small["bound_by"],
+            "serving_step_device_ms": in_step[name], **extra,
         }
 
     rr, ep = rate_timing["reverse_rates"], rate_timing["euler_posterior"]
     record = {"kernels": [
         entry("fused_tau_leap_update", "ctdd_tpu_torch/csrc/fused_tau_leap.cu",
-              "ctdd_tpu/ops/fused_update.py:170", max_err, timing[256], timing[16]),
+              "ctdd_tpu/ops/fused_update.py:170", max_err, timing[256], timing[16],
+              max_flip_frac=flip_frac,
+              expected_mode_ms=timing[256]["expected_mode_ms"],
+              expected_jumps_per_row=timing[256]["expected_jumps_per_row"]),
         entry("reverse_rates", "ctdd_tpu_torch/csrc/reverse_rates.cu",
               "ctdd_tpu/ops/pallas_kernels.py:81", rate_err["rate_abs"],
               rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"]),
@@ -683,8 +786,11 @@ def main() -> int:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"bound {k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}) at N=256; "
-            f"{k['serving_ms']:.4f} ms, plain {k['serving_plain_ms']:.4f} ms, bound "
-            f"{k['serving_bound_ms'] * 1e3:.1f} us ({k['serving_bound_by']}) at N=16")
+            f"{k['serving_ms']:.4f} ms ({k['serving_loop_ms']:.4f} ms per turn of a loop), "
+            f"plain {k['serving_plain_ms']:.4f} ms, bound "
+            f"{k['serving_bound_ms'] * 1e3:.1f} us ({k['serving_bound_by']}) at N=16, "
+            f"{k['serving_step_device_ms']:.4f} ms of device time inside a step; "
+            f"times by {k['timed_by']}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps(record))

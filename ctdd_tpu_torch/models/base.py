@@ -16,6 +16,7 @@ import torch.nn as nn
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops.forward_process import ForwardProcess, build_process
+from ctdd_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -53,12 +54,14 @@ class DiffusionModel:
         return self.process.transit_between(t1, t2)
 
 
-def create_model(cfg, device="cpu") -> DiffusionModel:
-    """Build the registered model named by cfg.model.name on `device`."""
-    return registry.models.get(cfg.model.name)(cfg, device=device)
+def create_model(cfg, device=None) -> DiffusionModel:
+    """Build the registered model named by cfg.model.name on `device`: the
+    GPU unless the caller passes another (`device="cpu"`)."""
+    return registry.models.get(cfg.model.name)(cfg, device=resolve_device(device))
 
 
-def compose(cfg, net: nn.Module, device="cpu") -> DiffusionModel:
+def compose(cfg, net: nn.Module, device=None) -> DiffusionModel:
+    device = resolve_device(device)
     return DiffusionModel(
         net=net.to(device), process=build_process(cfg, device=device), cfg=cfg
     )

@@ -40,7 +40,7 @@ _ZOO = {
 
 
 def _make_entry(name, make_net, process_name):
-    def build(cfg, device="cpu") -> DiffusionModel:
+    def build(cfg, device=None) -> DiffusionModel:
         # the process name is bound into the config, as the JAX zoo does
         if "rate_name" not in cfg.model:
             cfg.model.rate_name = process_name

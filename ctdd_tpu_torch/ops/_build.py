@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -71,6 +72,23 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
         reports[name] = log
     return reports
+
+
+def tensor_core_ops(name: str):
+    """Tensor-core MMA ops in the built library for `csrc/<name>.cu`,
+    counted by mnemonic (HMMA, IMMA, HGMMA ...) from `cuobjdump -sass`; None
+    where the toolkit has no `cuobjdump`."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run(
+        [str(tool), "-sass", str(library_path(name))],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    counts: Dict[str, int] = {}
+    for op in re.findall(r"\b((?:H|I|D|Q)G?MMA(?:\.\w+)*)", sass):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 @functools.lru_cache(maxsize=None)

@@ -23,6 +23,7 @@ import torch
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing
+from ctdd_tpu_torch.utils.device import resolve_device
 
 SCHEDULE_CONST = "const"
 SCHEDULE_BD_EXP = "bd_exp"  # birth-death σ_min/σ_max exponential
@@ -77,8 +78,10 @@ class ForwardProcess:
     def __init__(
         self, base_rate, eigvals, eigvecs, inv_eigvecs, *, kind: str,
         schedule: str, schedule_params: Tuple[float, ...] = (),
-        renormalize: bool = True, clamp: float = 1e-8, device="cpu",
+        renormalize: bool = True, clamp: float = 1e-8, device=None,
     ):
+        device = resolve_device(device)
+
         def f32(a):
             return torch.as_tensor(a, dtype=torch.float32, device=device)
 
@@ -185,7 +188,7 @@ def gaussian_target_base_rate(S: int, rate_sigma: float, Q_sigma: float) -> np.n
 
 @registry.processes.register(name="BirthDeathForwardBase")
 def make_birth_death(S: int, sigma_min: float, sigma_max: float,
-                     device="cpu") -> ForwardProcess:
+                     device=None) -> ForwardProcess:
     base = birth_death_base_rate(S)
     ev, V, Vi = _symmetric(base)
     return ForwardProcess(
@@ -196,7 +199,7 @@ def make_birth_death(S: int, sigma_min: float, sigma_max: float,
 
 
 @registry.processes.register(name="UniformRate")
-def make_uniform(S: int, rate_const: float, device="cpu") -> ForwardProcess:
+def make_uniform(S: int, rate_const: float, device=None) -> ForwardProcess:
     base = uniform_base_rate(S, rate_const)
     ev, V, Vi = _symmetric(base)
     return ForwardProcess(
@@ -209,7 +212,7 @@ def make_uniform(S: int, rate_const: float, device="cpu") -> ForwardProcess:
 @registry.processes.register(name="UniformVariantRate")
 def make_uniform_variant(
     S: int, rate_const: float, t_func: str, time_base: float = 1.0,
-    time_exp: float = 1.0, device="cpu",
+    time_exp: float = 1.0, device=None,
 ) -> ForwardProcess:
     base = uniform_base_rate(S, rate_const)
     ev, V, Vi = _symmetric(base)
@@ -230,7 +233,7 @@ def make_uniform_variant(
 @registry.processes.register(name="GaussianTargetRate")
 def make_gaussian_target(
     S: int, rate_sigma: float, Q_sigma: float, time_base: float,
-    time_exp: float, device="cpu",
+    time_exp: float, device=None,
 ) -> ForwardProcess:
     base = gaussian_target_base_rate(S, rate_sigma, Q_sigma)
     eigvals, eigvecs = np.linalg.eig(base)
@@ -245,7 +248,7 @@ def make_gaussian_target(
     )
 
 
-def build_process(cfg, device="cpu") -> ForwardProcess:
+def build_process(cfg, device=None) -> ForwardProcess:
     """Build the forward process named by cfg.model.rate_name."""
     name = cfg.model.rate_name
     S = cfg.data.S

@@ -8,7 +8,10 @@ is a chain of memory-bound passes over (N*D, S):
 
 `fused_tau_leap_update` runs the whole chain in one kernel
 (`csrc/fused_tau_leap.cu`) that reads the logits once and writes only the
-(N, D) int32 state. Both (S, S) tables round to bf16, as in the TPU kernel.
+(N, D) int32 state. Both (S, S) tables round to bf16, as in the TPU kernel,
+and the ratio product runs on the tensor cores (bf16 in, f32 sums). The
+kernel takes the tables as `pack_tables_t` lays them out: transposed and
+zero-padded to the MMA shape.
 
 Modes:
 - "poisson":  jump counts ~ Poisson(rev * h) by 12-term CDF inversion,
@@ -34,6 +37,7 @@ import torch
 
 MAX_POISSON_K = 12
 MAX_S = 256
+TABLE_PAD = 32
 _MODES = {"poisson": 0, "expected": 1}
 
 
@@ -115,14 +119,34 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def padded_size(S: int) -> int:
+    """S rounded up to the kernel's padding step: two k16 steps of its MMA."""
+    return -(-S // TABLE_PAD) * TABLE_PAD
+
+
+def pack_tables_t(qt0, rate):
+    """Two (S, S) f32 tables -> the kernel's operands, (2, Sp, Sp) bf16: each
+    rounded to bf16, transposed (row x holds column x of the table, so a
+    gathered column is contiguous) and zero-padded to Sp = padded_size(S).
+    Padded rows and columns are 0: they add nothing to the product and give
+    padded states rate 0. One allocation and one converting copy per table."""
+    S = qt0.shape[-1]
+    Sp = padded_size(S)
+    make = torch.empty if Sp == S else torch.zeros
+    out = make((2, Sp, Sp), dtype=torch.bfloat16, device=qt0.device)
+    out[0, :S, :S].copy_(qt0.t())
+    out[1, :S, :S].copy_(rate.t())
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _bind():
     from ctdd_tpu_torch.ops import _build
 
     lib = _build.load("fused_tau_leap")
     fn = lib.fused_tau_leap_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -171,16 +195,14 @@ def fused_tau_leap_update(
     _check("rate", rate, (S, S), torch.float32, dev)
     if u is not None:
         _check("u", u, (N, D, S), torch.float32, dev)
-    qt0b = qt0.to(torch.bfloat16).contiguous()
-    qt0Tb = qt0b.t().contiguous()
-    rateTb = rate.to(torch.bfloat16).t().contiguous()
+    tables = pack_tables_t(qt0, rate)
     out = torch.empty((N, D), dtype=torch.int32, device=dev)
     launch = _bind()
     err = launch(
         logits.data_ptr(), x_gather.data_ptr(), x_base.data_ptr(),
-        qt0b.data_ptr(), qt0Tb.data_ptr(), rateTb.data_ptr(),
+        tables[0].data_ptr(), tables[1].data_ptr(),
         None if u is None else u.data_ptr(), out.data_ptr(),
-        N * D, S, float(h), float(eps), int(seed) % 2**64,
+        N * D, S, padded_size(S), float(h), float(eps), int(seed) % 2**64,
         _MODES[mode], int(bool(is_ordinal)),
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -1,7 +1,8 @@
 """Reverse rates and the Euler posterior: the two halves of the LBJF step.
 
 Counterpart of ctdd_tpu/ops/pallas_kernels.py. Each function is one CUDA
-kernel over (N, D, S), float32 throughout:
+kernel over (N, D, S) at float32 accuracy (the reverse-rates product runs
+on the tensor cores as a 3xTF32 split, big*big + big*small + small*big):
 
 - `reverse_rates` (`csrc/reverse_rates.cu`):
       rate_cols * ((softmax(logits) / qt0_cols) @ qt0),  entry at x zeroed.

@@ -28,6 +28,7 @@ import torch
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing, rate_kernels
 from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
+from ctdd_tpu_torch.utils.device import resolve_device
 
 TAULDR_LOSSES = ("CTElbo", "NLL", "CTElboLambda", "NLLOriginal")
 
@@ -48,9 +49,10 @@ def get_sampler(cfg):
 
 def get_initial_samples(
     generator, N: int, D: int, S: int, initial_dist: str,
-    initial_dist_std: float = None, device="cpu",
+    initial_dist_std: float = None, device=None,
 ) -> torch.Tensor:
     """Uniform or discretized-Gaussian prior x_T, (N, D) int32."""
+    device = resolve_device(device)
     if initial_dist == "uniform":
         return torch.randint(0, S, (N, D), generator=generator, device=device,
                              dtype=torch.int32)

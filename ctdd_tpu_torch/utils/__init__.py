@@ -1,1 +1,1 @@
-"""Checkpoint bookkeeping of the port."""
+"""Device choice and checkpoint bookkeeping of the port."""

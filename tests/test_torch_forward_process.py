@@ -17,13 +17,22 @@ from tests.test_torch_unet import one_torch_thread  # noqa: F401
 ATOL, RTOL = 1e-6, 1e-4
 TS = np.array([0.01, 0.1, 0.37, 0.72, 1.0], np.float32)
 
+
+
+def _make(m, fn, *args, **kwargs):
+    """The port builds on the GPU unless told otherwise; JAX takes no device."""
+    if m is tfp:
+        kwargs["device"] = "cpu"
+    return getattr(m, fn)(*args, **kwargs)
+
+
 _PROCESSES = {
-    "gaussian_target": lambda m, S: m.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0),
-    "uniform": lambda m, S: m.make_uniform(S, 1.5),
-    "uniform_variant_sqrt_cos": lambda m, S: m.make_uniform_variant(S, 2.0, "sqrt_cos"),
-    "uniform_variant_log": lambda m, S: m.make_uniform_variant(
-        S, 1.0, "log", time_base=3.0, time_exp=100.0),
-    "birth_death": lambda m, S: m.make_birth_death(S, 1.0, 100.0),
+    "gaussian_target": lambda m, S: _make(m, "make_gaussian_target", S, 6.0, 512.0, 3.0, 100.0),
+    "uniform": lambda m, S: _make(m, "make_uniform", S, 1.5),
+    "uniform_variant_sqrt_cos": lambda m, S: _make(m, "make_uniform_variant", S, 2.0, "sqrt_cos"),
+    "uniform_variant_log": lambda m, S: _make(
+        m, "make_uniform_variant", S, 1.0, "log", time_base=3.0, time_exp=100.0),
+    "birth_death": lambda m, S: _make(m, "make_birth_death", S, 1.0, 100.0),
 }
 
 _CASES = [(name, 8) for name in _PROCESSES] + [("gaussian_target", 256)]

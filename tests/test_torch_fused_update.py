@@ -75,6 +75,42 @@ def test_poisson_mode_matches_mirror_with_injected_u(is_ordinal, S, h):
     assert np.mean(got != x) > 0.01  # the step moved states: not vacuous
 
 
+@pytest.mark.parametrize("S", [2, 3, 8, 32, 100, 256])
+def test_table_packing_round_trips_and_pads_with_zeros(S):
+    """The kernel's table operand: bf16, transposed, zero-padded to a
+    multiple of 32. Exact: unpack(pack(t)) is t rounded to bf16."""
+    rng = np.random.default_rng(S)
+    qt0, rate = (torch.from_numpy(rng.random((S, S)).astype(np.float32))
+                 for _ in range(2))
+    packed = tfu.pack_tables_t(qt0, rate)
+    Sp = tfu.padded_size(S)
+    assert Sp % tfu.TABLE_PAD == 0 and S <= Sp < S + tfu.TABLE_PAD
+    assert packed.shape == (2, Sp, Sp) and packed.dtype == torch.bfloat16
+    assert packed.is_contiguous()
+    for got, table in zip(packed, (qt0, rate)):
+        assert torch.equal(got[:S, :S].t(), table.to(torch.bfloat16))
+        # row x of the operand is column x of the table: the kernel's gather
+        assert torch.equal(got[1, :S], table.to(torch.bfloat16)[:, 1])
+        assert not got[S:, :].any() and not got[:, S:].any()
+
+
+@pytest.mark.parametrize("S", [3, 2])
+@pytest.mark.parametrize("mode", ["expected", "poisson"])
+def test_small_state_spaces_match_mirror(S, mode):
+    """S=3 (maze) and S=2 against the JAX mirror with the same uniforms;
+    the flip allowance of the module docstring (0.1% of states)."""
+    logits, qt0, rate, x, u = _inputs(4, 90, S, seed=11 + S)
+    h = 0.3
+    want = np.asarray(jfu.fused_tau_leap_update_xla(
+        jnp.asarray(logits), jnp.asarray(x), jnp.asarray(x), jnp.asarray(qt0),
+        jnp.asarray(rate), h, 1e-9, u=jnp.asarray(u), mode=mode))
+    tl, tq, tr, tx, tu = _torch(logits, qt0, rate, x, u)
+    got = tfu.fused_tau_leap_update_plain(tl, tx, tx, tq, tr, h, 1e-9, tu,
+                                          mode=mode).numpy()
+    assert np.mean(got != want) <= MAX_FLIP_FRAC
+    assert np.mean(got != x) > 0.01
+
+
 def test_nonordinal_rejection_keeps_state():
     logits, qt0, rate, x, _ = _inputs(seed=5)
     tl, tq, tr, tx = _torch(logits, qt0, rate, x)

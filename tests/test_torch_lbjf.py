@@ -67,7 +67,7 @@ def _cfgs(config: str, sampler: str, num_steps: int = 50, model_kw=None,
 
 def _models(cfg, tcfg, seed=3):
     jmodel, params = seeded_flax_params(cfg, seed=seed, scale=0.15)
-    tmodel = create_model(tcfg)
+    tmodel = create_model(tcfg, device="cpu")
     tmodel.net.load_state_dict(port_net(tcfg, params).state_dict())
     tmodel.net.eval()
     return jmodel, params, tmodel

@@ -51,7 +51,7 @@ def test_mlp_logits_match_jax(model_name, S):
         # the Gaussian process's settings, as the flagship has them
         c.model.rate_sigma, c.model.time_base, c.model.time_exp = 6.0, 3.0, 100.0
     model, params = _seeded_flax(cfg, seed=1)
-    tmodel = create_model(tcfg)
+    tmodel = create_model(tcfg, device="cpu")
     assert isinstance(tmodel.net, ResidualMLP)
     assert tcfg.model.rate_name == cfg.model.rate_name
     tmodel.net.load_state_dict(mlp_params_from_flax(params, tmodel.net))
@@ -70,7 +70,7 @@ def test_mlp_convert_rejects_missing_extra_and_misshapen_leaves():
     cfg = jax_get_preset("mlp_synthetic")
     _, params = _seeded_flax(cfg)
     params = dict(jax.tree_util.tree_map(np.asarray, params))
-    net = create_model(get_preset("mlp_synthetic")).net
+    net = create_model(get_preset("mlp_synthetic"), device="cpu").net
     head = params.pop("Dense_10")
     with pytest.raises(KeyError, match="no flax leaf"):
         mlp_params_from_flax(params, net)
@@ -94,7 +94,7 @@ def test_mlp_synthetic_served_on_the_cpu(tmp_path):
     jcfg = jax_get_preset("mlp_synthetic")
     cfg = get_preset("mlp_synthetic")
     _, params = _seeded_flax(jcfg, seed=3, scale=0.1)
-    model = create_model(cfg)
+    model = create_model(cfg, device="cpu")
     sd = mlp_params_from_flax(params, model.net)
     path = save_checkpoint(str(tmp_path / "mlp.pt"), sd, sd, step=11, config=cfg)
     svc = SamplerService(cfg, path, batch=8, device="cpu")

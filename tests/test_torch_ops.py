@@ -93,7 +93,7 @@ def test_registry_names_and_errors():
 def test_model_apply_takes_a_module_or_a_state_dict():
     _, tcfg = flagship_cfgs("tiny")
     torch.manual_seed(0)
-    model = create_model(tcfg)
+    model = create_model(tcfg, device="cpu")
     model.net.eval()
     assert tcfg.model.rate_name == "GaussianTargetRate"
     x = torch.randint(0, 8, (2, 64), dtype=torch.int32)

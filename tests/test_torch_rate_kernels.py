@@ -53,7 +53,7 @@ def _assert_rows_close(got, want):
 
 
 @pytest.mark.parametrize("ref", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("S", [8, 3])
+@pytest.mark.parametrize("S", [8, 3, 2])
 def test_reverse_rates_plain_matches_jax(ref, S):
     arrays = _inputs(S=S)
     if ref == "xla":
@@ -109,10 +109,10 @@ def test_per_sample_reverse_rates_match_jax(process):
     S, N, D = 8, 3, 7
     if process == "gaussian":
         jproc = jfp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0)
-        tproc = tfp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0)
+        tproc = tfp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0, device="cpu")
     else:
         jproc = jfp.make_uniform_variant(S, rate_const=1.3, t_func="log_sqr")
-        tproc = tfp.make_uniform_variant(S, 1.3, "log_sqr")
+        tproc = tfp.make_uniform_variant(S, 1.3, "log_sqr", device="cpu")
     rng = np.random.default_rng(5)
     logits = rng.standard_normal((N, D, S)).astype(np.float32)
     x = rng.integers(0, S, (N, D)).astype(np.int32)
@@ -144,7 +144,7 @@ def test_reverse_rates_shared_matches_jax_and_keeps_the_entry_at_x():
     the per-sample test."""
     S, N, D = 8, 3, 7
     jproc = jfp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0)
-    tproc = tfp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0)
+    tproc = tfp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0, device="cpu")
     rng = np.random.default_rng(7)
     logits = rng.standard_normal((N, D, S)).astype(np.float32)
     x = rng.integers(0, S, (N, D)).astype(np.int32)

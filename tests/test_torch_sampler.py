@@ -37,7 +37,7 @@ def _setup(fused: bool, num_steps: int = 50):
         c.sampler.num_steps = num_steps
         c.sampler.use_fused_update = fused
     jmodel, params = seeded_flax_params(cfg, seed=3, scale=0.15)
-    tmodel = create_model(tcfg)
+    tmodel = create_model(tcfg, device="cpu")
     tmodel.net.load_state_dict(port_net(tcfg, params).state_dict())
     tmodel.net.eval()
     return cfg, tcfg, jmodel, params, tmodel
@@ -142,7 +142,7 @@ def test_oracle_converges_to_class_zero(fused, exact_poisson, loss_name):
     cfg.sampler.initial_dist = "uniform"
     cfg.sampler.use_fused_update = fused
     cfg.sampler.exact_poisson = exact_poisson  # torch.poisson draws
-    model = DiffusionModel(net=OracleNet(S), process=make_uniform(S, 1.5), cfg=cfg)
+    model = DiffusionModel(net=OracleNet(S), process=make_uniform(S, 1.5, device="cpu"), cfg=cfg)
     samples, _ = ts.get_sampler(cfg).sample(
         model, model.net, torch.Generator().manual_seed(0), 32
     )
@@ -158,7 +158,7 @@ def test_later_slices_raise_not_implemented():
     tcfg.sampler.corrector_entry_time = 0.5  # a live corrector
     sampler = ts.get_sampler(tcfg)
     assert sampler.num_corrector_steps == 3
-    model = create_model(tcfg)
+    model = create_model(tcfg, device="cpu")
     calls = []
     inner = sampler.corrector_step
     sampler.corrector_step = lambda *a, **kw: (calls.append(a[3]), inner(*a, **kw))[1]

@@ -25,7 +25,7 @@ def _make_ckpt(tmp_path):
     _, cfg = flagship_cfgs("tiny")
     cfg.sampler.num_steps = 4
     cfg.sampler.use_fused_update = True
-    model = create_model(cfg)
+    model = create_model(cfg, device="cpu")
     torch.manual_seed(0)
     ema = {k: v + 0.01 for k, v in model.net.state_dict().items()}
     path = str(tmp_path / "ckpt.pt")
