@@ -30,6 +30,17 @@ Phases (any fault exits non-zero; nothing is caught):
               launch counts: the flagship with LBJF and a live corrector
               (1000 steps), tauUnet_mnist_ll (MidPointTauL, fused) and
               tauUnet_maze (LBJF/200)
+ 12. training the flagship at full width on a seeded MNIST-shaped stand-in:
+              (a) one B=4 step, card vs CPU, held to the CPU's own float32
+              error against a float64 step, and a control with TF32 on
+              that must fail; (b) train() for 100 B=64 steps
+              with one in-loop grid (1000 fused launches), a falling loss,
+              steps/s, peak memory and a step breakdown, and 50 steps of
+              tauUnet_mnist_ll; (c) a fresh train() from (b)'s checkpoint
+              at step 50, 50 more steps, against (b)'s 100, and a control
+              resumed with Adam's moments zeroed that must fail; (d) the
+              trained checkpoint served over
+              HTTP (1000 launches)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -571,23 +583,32 @@ def kernel_wrappers() -> dict:
 
 def serve_request(dev, tmpdir, label, cfg, n, expected, seed):
     """Seeded checkpoint -> SamplerService -> one /generate?n= request over
-    HTTP. The launch counters are set to 0 just before the request and read
-    just after; `expected` gives every kernel's exact count per batch."""
+    HTTP (`serve_checkpoint`), after a warm-up batch."""
     from ctdd_tpu_torch.models.base import create_model
-    from ctdd_tpu_torch.serving import SamplerService, run_http_server
     from ctdd_tpu_torch.utils.bookkeeping import save_checkpoint
 
     torch.manual_seed(seed)
     model = create_model(cfg, device=dev)
     sd = model.net.state_dict()
-    n_params = sum(v.numel() for v in sd.values())
     path = save_checkpoint(f"{tmpdir}/{label}.pt", sd, sd, step=0, config=cfg)
+    return serve_checkpoint(dev, label, cfg, path, n, expected, warmup=True)
+
+
+def serve_checkpoint(dev, label, cfg, path, n, expected, warmup):
+    """Checkpoint file -> SamplerService -> one /generate?n= request over
+    HTTP. The launch counters are set to 0 just before the request and read
+    just after; `expected` gives every kernel's exact count per batch."""
+    from ctdd_tpu_torch.serving import SamplerService, run_http_server
+
     svc = SamplerService(cfg, path, batch=16, device=dev)
-    t0 = time.perf_counter()
-    svc.warmup()
-    torch.cuda.synchronize()
-    log(f"  {label}: {n_params / 1e6:.2f} M params, {cfg.sampler.name}; warm-up "
-        f"batch of 16: {time.perf_counter() - t0:.2f} s")
+    n_params = sum(v.numel() for v in svc.model.net.state_dict().values())
+    line = f"  {label}: {n_params / 1e6:.2f} M params, {cfg.sampler.name}, step {svc.step}"
+    if warmup:
+        t0 = time.perf_counter()
+        svc.warmup()
+        torch.cuda.synchronize()
+        line += f"; warm-up batch of 16: {time.perf_counter() - t0:.2f} s"
+    log(line)
 
     wrappers = kernel_wrappers()
     server = run_http_server(svc, port=0)
@@ -669,6 +690,409 @@ def phase_serving_slice2(dev, tmpdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training the flagship, and serving what it trained
+# ---------------------------------------------------------------------------
+
+TABLE_TOL = 1e-7  # (a) process tables, card vs CPU (float32, spectral form)
+TRAIN_LOSS_RTOL = 1e-4  # (a) the loss, card vs CPU, float32 with TF32 off
+GRAD_FLOOR_MULT = 6.0  # (a) gradients: cuDNN's conv algorithms (Winograd,
+# implicit GEMM) round otherwise than the CPU's; allowed in units of the
+# CPU's own float32 error against float64
+FLOOR_MULT = 4.0  # (a) updates: allowed, in units of their floor
+MOVED_BY = 0.1  # (a): "moved otherwise" = updates that differ by > 0.1 lr
+MOVED_SHARE_ABS = 1e-4  # (a): ... plus this share of the entries
+RESUME_TOL = 2e-3  # (c): resumed vs uninterrupted, share of the distance trained
+
+
+def mnist_like(path: str, n: int = 8192, seed: int = 0) -> str:
+    """A seeded stand-in in MNIST's layout: uint8 (n, 28, 28) images, a
+    zero background and four bright strokes each, as `x_train`/`y_train`."""
+    rng = np.random.default_rng(seed)
+    imgs = np.zeros((n, 28, 28), np.uint8)
+    rows = np.arange(n)[:, None]
+    along = np.linspace(0.0, 1.0, 24)
+    for _ in range(4):
+        p0, p1 = rng.uniform(5, 22, (n, 2)), rng.uniform(5, 22, (n, 2))
+        val = rng.integers(160, 256, (n, 1)).astype(np.uint8)
+        pts = p0[:, None, :] + (p1 - p0)[:, None, :] * along[None, :, None]
+        for dy in (0, 1):
+            for dx in (0, 1):
+                r = np.clip(np.rint(pts[..., 0]).astype(int) + dy, 0, 27)
+                c = np.clip(np.rint(pts[..., 1]).astype(int) + dx, 0, 27)
+                imgs[rows, r, c] = np.maximum(imgs[rows, r, c], val)
+    np.savez(path, x_train=imgs, y_train=np.zeros(n, np.int64))
+    return path
+
+
+def train_cfg(tmpdir: str, data_path: str, run: str, preset: str = "tauUnet_mnist"):
+    """A preset at full width on the stand-in data, fused grids."""
+    cfg = full_cfg(fused=True, preset=preset)
+    cfg.data.location = data_path
+    cfg.save_location = f"{tmpdir}/{run}"
+    cfg.sampler.sample_freq = 100
+    cfg.saving.checkpoint_freq = 50
+    return cfg
+
+
+class OnTables:
+    """`model`'s network over the process tables of `tables` (a model on the
+    CPU), cast to `dtype` and moved to `model`'s device. The ELBO divides by
+    q_{t|0} + 1e-9, so entries near 1e-9, which float32 rounds differently
+    on two devices, would move the loss by itself; both sides of the step
+    comparison therefore use the CPU's tables, and phase [12] compares the
+    tables apart."""
+
+    def __init__(self, model, tables, dtype=torch.float32):
+        self.model, self.tables, self.dtype = model, tables, dtype
+
+    def transition(self, t):
+        return self.tables.transition(t.cpu().float()).to(self.model.device, self.dtype)
+
+    def rate(self, t):
+        return self.tables.rate(t.cpu().float()).to(self.model.device, self.dtype)
+
+    def apply(self, params, x, t, train=False):
+        return self.model.apply(params, x, t.to(self.dtype), train=train)
+
+
+def one_train_step(model, params, tx, cfg, x0, ts, samples):
+    """The flagship's step with injected times and (x_t, x̃), dropout off:
+    (loss, grads, state after the step)."""
+    from ctdd_tpu_torch.losses.losses import _ctelbo_terms
+    from ctdd_tpu_torch.training.state import create_train_state
+    from ctdd_tpu_torch.training.train_step import apply_update, value_and_grad
+    from ctdd_tpu_torch.utils.math import mean_cross_entropy
+
+    def loss_fn(p):
+        neg_elbo, logits = _ctelbo_terms(model, p, None, x0, ts, cfg.loss.eps_ratio,
+                                         cfg.loss.one_forward_pass, False, samples=samples)
+        return neg_elbo + cfg.loss.nll_weight * mean_cross_entropy(logits, x0)
+
+    state = create_train_state(params, tx)
+    value, grads = value_and_grad(loss_fn, state.params)
+    state, _ = apply_update(state, value, grads, tx, float(cfg.model.ema_decay))
+    return float(value), {k: g.cpu().double() for k, g in grads.items()}, state
+
+
+def phase_train_step(dev, data_path) -> dict:
+    """(a) One full-width step at batch 4, card vs CPU, TF32 off on the
+    card, both on the CPU's process tables (`OnTables`); the tables
+    themselves agree to TABLE_TOL. The ELBO's gradient carries 1/q_{t|0}
+    factors up to 1e9, so the card is held against the CPU's own float32
+    error, measured against a float64 step on the CPU:
+    per leaf, the largest |card - CPU| over the leaf's largest |g| must stay
+    within GRAD_FLOOR_MULT times the worst leaf's |CPU - float64|. After the
+    step, an Adam update moves a weight by about lr · sign(g): the share of
+    weights (and EMA entries) whose update differs by more than MOVED_BY · lr
+    must stay within FLOOR_MULT times the float32-vs-float64 share plus
+    MOVED_SHARE_ABS. A control repeats the card's side with TF32 on: its
+    tables and gradients must fail their limits."""
+    from ctdd_tpu_torch.losses.losses import sample_xt_xtilde
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+
+    cfg = full_cfg(fused=True)
+    torch.manual_seed(0)
+    cpu = create_model(cfg, device="cpu")
+    gpu = create_model(cfg, device=dev)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    x0 = torch.from_numpy(np.load(data_path)["x_train"][:4].reshape(4, -1).astype(np.int32))
+    ts = torch.tensor([0.02, 0.1, 0.3, 0.6])
+    samples = sample_xt_xtilde(torch.Generator().manual_seed(0), cpu.transition(ts),
+                               cpu.rate(ts), x0)
+    tx = get_optimizer(cfg)
+    lr = float(cfg.optimizer.lr)
+    weights = dict(cpu.net.named_parameters())
+
+    def on_card(tf32: bool):
+        """(tables' error against the CPU's, loss, grads, state after the
+        step) on the card; the step updates its params in place, so it
+        starts from a copy."""
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            table_err = max(
+                (gpu.transition(ts.to(dev)).cpu() - cpu.transition(ts)).abs().max().item(),
+                ((gpu.rate(ts.to(dev)).cpu() - cpu.rate(ts)).abs()
+                 / cpu.rate(ts).abs().amax(-1, keepdim=True)).max().item())
+            return (table_err, *one_train_step(
+                OnTables(gpu, cpu), {k: v.detach().clone().to(dev) for k, v in weights.items()},
+                tx, cfg, x0.to(dev), ts.to(dev), tuple(s.to(dev) for s in samples)))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    table_err, l_gpu, g_gpu, s_gpu = on_card(tf32=False)
+    table_tf32, _, g_tf32, _ = on_card(tf32=True)
+    l_cpu, g_cpu, s_cpu = one_train_step(
+        cpu, {k: v.detach().clone() for k, v in weights.items()}, tx, cfg, x0, ts, samples)
+    l_64, g_64, s_64 = one_train_step(
+        OnTables(cpu, cpu, torch.float64), {k: v.double() for k, v in weights.items()},
+        tx, cfg, x0, ts.double(), samples)
+
+    def grad_err(a, b):
+        return max(((a[k] - b[k]).abs().max() / g_64[k].abs().max()).item() for k in g_64)
+
+    grad_card, grad_floor = grad_err(g_gpu, g_cpu), grad_err(g_cpu, g_64)
+
+    def moved_otherwise(a, b):
+        n = sum(v.numel() for v in a.values())
+        return sum(int(((a[k].detach().cpu().double() - b[k].detach().cpu().double()).abs()
+                        > MOVED_BY * lr).sum()) for k in a) / n
+
+    out = dict(
+        table_err=table_err, table_tol=TABLE_TOL,
+        loss_card=l_gpu, loss_cpu=l_cpu, loss_float64=l_64,
+        loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), loss_tol=TRAIN_LOSS_RTOL,
+        grad_err=grad_card, grad_floor=grad_floor, grad_tol=GRAD_FLOOR_MULT * grad_floor,
+        params_moved_otherwise=moved_otherwise(s_gpu.params, s_cpu.params),
+        params_floor=moved_otherwise(s_cpu.params, s_64.params),
+        ema_moved_otherwise=moved_otherwise(s_gpu.ema_params, s_cpu.ema_params),
+        ema_floor=moved_otherwise(s_cpu.ema_params, s_64.ema_params),
+        control_tf32_table_err=table_tf32, control_tf32_grad_err=grad_err(g_tf32, g_cpu))
+    out["params_tol"] = FLOOR_MULT * out["params_floor"] + MOVED_SHARE_ABS
+    out["ema_tol"] = FLOOR_MULT * out["ema_floor"] + MOVED_SHARE_ABS
+    log(f"  process tables at the step's times, card vs CPU: {table_err:.3e} (q_{{t|0}} "
+        f"absolute, rates over their row's largest; tol {TABLE_TOL:.0e})")
+    log(f"  loss: card {l_gpu:.6f}, CPU {l_cpu:.6f}, float64 {l_64:.6f}; card vs CPU "
+        f"{out['loss_rel_err']:.3e} (tol {TRAIN_LOSS_RTOL:.0e})")
+    log(f"  grads, worst leaf, share of its largest |g|: card vs CPU {grad_card:.3e} "
+        f"(tol {out['grad_tol']:.3e} = {GRAD_FLOOR_MULT:g} x the CPU's float32 error "
+        f"{grad_floor:.3e} against float64)")
+    for what in ("params", "ema"):
+        log(f"  {what} after the step, share whose update differs by > {MOVED_BY:g} lr: "
+            f"card vs CPU {out[what + '_moved_otherwise']:.3e} (tol {out[what + '_tol']:.3e}; "
+            f"CPU vs float64 {out[what + '_floor']:.3e})")
+    log(f"  control, TF32 on: tables {table_tf32:.3e}, grads {out['control_tf32_grad_err']:.3e} "
+        "(each must exceed its tol)")
+    if s_gpu.step != 1 or s_gpu.opt_state.count != 1 or s_gpu.ema_num_updates != 1:
+        raise AssertionError("the step on the card did not advance its counters")
+    if not (table_err <= TABLE_TOL and out["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and grad_card <= out["grad_tol"]
+            and out["params_moved_otherwise"] <= out["params_tol"]
+            and out["ema_moved_otherwise"] <= out["ema_tol"]):
+        raise AssertionError(f"train step on the card differs from the CPU: {out}")
+    if not (table_tf32 > TABLE_TOL and out["control_tf32_grad_err"] > out["grad_tol"]):
+        raise AssertionError(f"the limits pass a step with TF32 on: {out}")
+    return out
+
+
+def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
+    """Where one B=64 train step's time goes: wall time, device time of the
+    whole step (torch.profiler), of the UNet's forward and backward alone and
+    of the optimizer and EMA alone (each traced alone on the same inputs);
+    the loss is the rest of the step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctdd_tpu_torch.losses.losses import get_loss
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+    from ctdd_tpu_torch.training.state import create_train_state
+    from ctdd_tpu_torch.training.train_step import (
+        apply_update, make_device_data_step, value_and_grad,
+    )
+
+    torch.manual_seed(5)
+    model = create_model(cfg, device=dev)
+    tx = get_optimizer(cfg)
+    state = create_train_state(dict(model.net.named_parameters()), tx)
+    data = torch.from_numpy(np.load(data_path)["x_train"].reshape(-1, 784).astype(np.int32)).to(dev)
+    B = cfg.data.batch_size
+    decay = float(cfg.model.ema_decay)
+    step = make_device_data_step(model, get_loss(cfg), tx, B, ema_decay=decay)
+    for _ in range(3):
+        state, _ = step(state, data, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, data, 0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(5):
+            state, _ = step(state, data, 0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 5
+
+    x, t = data[:B], torch.rand(B, device=dev) * 0.99 + 0.01
+    plist = list(state.params.values())
+    g_out = torch.randn((B, 784, cfg.data.S), device=dev)
+
+    def unet_fwd_bwd():
+        torch.autograd.grad(model.apply(state.params, x, t, train=True), plist,
+                            grad_outputs=g_out)
+
+    value, grads = value_and_grad(
+        lambda p: model.apply(p, x, t, train=True).float().square().mean(), state.params)
+    unet_ms = device_ms(unet_fwd_bwd, 5)
+    opt_ms = device_ms(lambda: apply_update(state, value, grads, tx, decay), 5)
+    out = dict(batch=B, step_ms=step_ms, steps_per_s=1e3 / step_ms,
+               device_busy_ms=busy_ms, unet_fwd_bwd_ms=unet_ms,
+               optimizer_ema_ms=opt_ms,
+               loss_ms=busy_ms - unet_ms - opt_ms if busy_ms else None,
+               idle_share=1.0 - busy_ms / step_ms if busy_ms else None,
+               device_kernels_per_step=sum(e.count for e in kernels) / 5)
+    log(f"  B={B} train step: {step_ms:.3f} ms wall ({out['steps_per_s']:.2f} steps/s); "
+        f"device busy {busy_ms:.3f} ms: UNet forward+backward {unet_ms:.3f} ms, "
+        f"optimizer+EMA {opt_ms:.3f} ms, loss (the rest) "
+        + (f"{out['loss_ms']:.3f} ms" if busy_ms else "not measured")
+        + f"; {out['device_kernels_per_step']:.0f} device kernels per step; idle share "
+        + (f"{out['idle_share']:.3f}" if busy_ms else "not measured"))
+    return out
+
+
+def start_weights(cfg, dev) -> dict:
+    """The weights train(seed=0) starts from."""
+    from ctdd_tpu_torch.models.base import create_model
+
+    net = create_model(cfg, device="cpu").net
+    net.init_weights(torch.Generator().manual_seed(0))
+    return {k: v.detach().to(dev) for k, v in net.named_parameters()}
+
+
+@torch.no_grad()
+def held_out_loss(model, cfg, data_path, params) -> float:
+    """The preset's loss on the first 64 images with fixed draws (times, x_t,
+    x̃ from one seed) and dropout off: noise-free, unlike the step losses,
+    whose times differ from step to step."""
+    from ctdd_tpu_torch.losses.losses import get_loss
+
+    x0 = torch.from_numpy(np.load(data_path)["x_train"][:64].reshape(64, -1).astype(np.int32))
+    gen = torch.Generator(device=model.device).manual_seed(123)
+    return float(get_loss(cfg).calc_loss(model, params, gen, x0.to(model.device),
+                                         train=False))
+
+
+def check_losses(label, losses, first, last):
+    if not np.isfinite(losses).all() or losses.max() >= 1e9:
+        raise AssertionError(f"{label}: non-finite or skipped losses: {losses.tolist()}")
+    if not last < first:
+        raise AssertionError(f"{label}: the loss did not fall: first 10 {first}, last 10 {last}")
+
+
+def rel_distance(a, b, origin) -> float:
+    """||a - b|| / ||b - origin|| over all entries: how far apart two
+    trajectories end, in units of how far training moved the weights."""
+    num = sum(float((a[k].detach().double() - b[k].detach().double()).square().sum())
+              for k in b)
+    den = sum(float((b[k].detach().double() - origin[k].double()).square().sum())
+              for k in b)
+    return math.sqrt(num / den)
+
+
+def phase_training(dev, tmpdir, data_path) -> dict:
+    """(b) 100 full-width steps through train() with the in-loop grid, and
+    50 of the twin preset; (c) 50 more steps from (b)'s checkpoint at 50, in
+    a fresh train(), against (b)'s 100 within RESUME_TOL, and the same from
+    that checkpoint with Adam's moments zeroed, which must exceed it; (d)
+    the trained checkpoint served over HTTP."""
+    from ctdd_tpu_torch.config.base import Config
+    from ctdd_tpu_torch.training.loop import train
+    from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
+
+    wrappers = kernel_wrappers()
+    cfg = train_cfg(tmpdir, data_path, "run")
+    start = start_weights(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    state, info = train(cfg, n_iters=100, seed=0, device=dev, log_every=25)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grid_launches = {name: w.launches for name, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = np.asarray(info["step_losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    grid = np.load(f"{info['paths']['pngs']}/samples_100.npy")
+    held = {k: held_out_loss(info["model"], cfg, data_path, w)
+            for k, w in (("start", start), ("trained", state.params))}
+    log(f"  100 steps at B={cfg.data.batch_size} in {seconds:.1f} s with one grid of 16 "
+        f"samples: {info['steps_per_sec']:.3f} steps/s steady (first step, grid and "
+        f"checkpoint saves left out); peak device memory {peak_gb:.2f} GB; mean loss of "
+        f"the first 10 steps {first:.1f}, last 10 {last:.1f}; on a fixed batch with "
+        f"fixed draws {held['start']:.1f} at the start, {held['trained']:.1f} after; "
+        f"grid launches { {k: v for k, v in grid_launches.items() if v} }")
+    check_losses("tauUnet_mnist", losses, first, last)
+    if not held["trained"] < held["start"]:
+        raise AssertionError(f"the loss on a fixed batch did not fall: {held}")
+
+    # the twin preset's loss (NLLOriginal), 50 steps without a grid
+    twin = train_cfg(tmpdir, data_path, "twin", preset="tauUnet_mnist_ll")
+    twin.sampler.sample_freq = 0
+    _, twin_info = train(twin, n_iters=50, seed=0, device=dev, log_every=50)
+    twin_losses = np.asarray(twin_info["step_losses"])
+    twin_first, twin_last = float(twin_losses[:10].mean()), float(twin_losses[-10:].mean())
+    log(f"  tauUnet_mnist_ll (NLLOriginal) 50 steps: {twin_info['steps_per_sec']:.3f} "
+        f"steps/s; mean loss of the first 10 steps {twin_first:.4f}, last 10 {twin_last:.4f}")
+    check_losses("tauUnet_mnist_ll", twin_losses, twin_first, twin_last)
+    if grid_launches != {"fused_tau_leap_update": cfg.sampler.num_steps,
+                         "reverse_rates": 0, "euler_posterior": 0}:
+        raise AssertionError(f"in-loop grid launches {grid_launches}")
+    if grid.shape != (16, 784) or grid.min() < 0 or grid.max() > 255:
+        raise AssertionError(f"bad in-loop grid {grid.shape}")
+
+    log("  step breakdown")
+    breakdown = train_step_breakdown(dev, cfg, data_path)
+
+    # (c) the checkpoint (b) wrote after 50 steps, a fresh train() from it,
+    # 50 more; and, as a control that must fail, the same with Adam's
+    # moments zeroed in that checkpoint (count kept)
+    cfg_r = train_cfg(tmpdir, data_path, "resume")
+    cfg_r.sampler.sample_freq = 0
+    at50 = torch.load(f"{info['paths']['checkpoints']}/50.pt", weights_only=True)
+    for sub, ckpt in (("at50", at50), ("at50_zeroed", {**at50, "opt_state": {
+            **at50["opt_state"], **{m: {k: torch.zeros_like(v) for k, v in
+                                        at50["opt_state"][m].items()} for m in ("mu", "nu")}}})):
+        os.makedirs(f"{tmpdir}/{sub}")
+        torch.save(ckpt, f"{tmpdir}/{sub}/50.pt")
+    resumed, _ = train(cfg_r, n_iters=100, seed=0, device=dev, log_every=50,
+                       resume_from=f"{tmpdir}/at50")
+    zeroed, _ = train(cfg_r, n_iters=100, seed=0, device=dev, log_every=50,
+                      resume_from=f"{tmpdir}/at50_zeroed")
+    res = {}
+    for what in ("params", "ema_params"):
+        full = getattr(state, what)
+        res[what] = dict(resumed=rel_distance(getattr(resumed, what), full, start),
+                         control_zeroed_moments=rel_distance(getattr(zeroed, what), full, start),
+                         tol=RESUME_TOL,
+                         identical=all(torch.equal(getattr(resumed, what)[k], full[k])
+                                       for k in full))
+        log(f"  resume, {what}: ||resumed - uninterrupted|| / ||uninterrupted - start|| "
+            f"{res[what]['resumed']:.3e} (tol {RESUME_TOL:.0e}; control with Adam's "
+            f"moments zeroed {res[what]['control_zeroed_moments']:.3e}, must exceed it); "
+            f"bit-identical: {res[what]['identical']}")
+    counts = dict(step=(resumed.step, state.step),
+                  count=(resumed.opt_state.count, state.opt_state.count),
+                  ema_num_updates=(resumed.ema_num_updates, state.ema_num_updates))
+    if any(a != b or a != 100 for a, b in counts.values()):
+        raise AssertionError(f"resumed counters differ: {counts}")
+    if any(r["resumed"] > RESUME_TOL for r in res.values()):
+        raise AssertionError(f"the resumed run left the uninterrupted one: {res}")
+    if not res["params"]["control_zeroed_moments"] > RESUME_TOL:
+        raise AssertionError(f"the resume limit passes zeroed moments: {res}")
+
+    # (d) the trained checkpoint, as the trainer wrote it, over HTTP
+    path = f"{info['paths']['checkpoints']}/100.pt"
+    served_cfg = Config(load_checkpoint(path)["config"])
+    launches, elapsed = serve_checkpoint(
+        dev, "tauUnet_mnist trained 100 steps", served_cfg, path, 16,
+        {"fused_tau_leap_update": served_cfg.sampler.num_steps}, warmup=False)
+    return dict(
+        grid_launches=grid_launches, served_launches=launches, served_seconds=elapsed,
+        record=dict(steps=100, seconds=seconds,
+                    steps_per_s_loop=info["steps_per_sec"], peak_memory_gb=peak_gb,
+                    loss_first10=first, loss_last10=last,
+                    held_out_loss_start=held["start"], held_out_loss_trained=held["trained"],
+                    twin_steps_per_s_loop=twin_info["steps_per_sec"],
+                    twin_loss_first10=twin_first, twin_loss_last10=twin_last, **breakdown,
+                    resume={k: v for k, v in res.items()},
+                    served_samples_per_s=16 / elapsed))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -729,9 +1153,17 @@ def main() -> int:
         launches, elapsed = phase_serving(dev, tmpdir)
         log("[11] serving: LBJF with a corrector, MidPointTauL, maze")
         served = phase_serving_slice2(dev, tmpdir)
+        log("[12] training: the flagship at full width, and serving what it trained")
+        data_path = mnist_like(f"{tmpdir}/mnist_like.npz")
+        log("  (a) one step, card vs CPU")
+        step_check = phase_train_step(dev, data_path)
+        log("  (b) train() 100 steps with the in-loop grid, (c) resume, (d) serve")
+        trained = phase_training(dev, tmpdir, data_path)
 
     by_request = {"tauUnet_mnist TauL fused n=20": launches,
-                  **{label: counts for label, (counts, _) in served.items()}}
+                  **{label: counts for label, (counts, _) in served.items()},
+                  "train() in-loop grid at step 100": trained["grid_launches"],
+                  "tauUnet_mnist trained 100 steps n=16": trained["served_launches"]}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -782,6 +1214,8 @@ def main() -> int:
     log("serving_other: " + json.dumps({
         label: {"samples_per_s": 16 / secs, "seconds": secs}
         for label, (_, secs) in served.items()}))
+    log("training: " + json.dumps({**trained["record"], "step_vs_cpu": step_check,
+                                   "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

@@ -1,11 +1,14 @@
 """A small attribute-access config (the port's stand-in for ConfigDict).
 
 Nested dicts become `Config`s; `to_dict()` gives plain data back, which is
-what a checkpoint stores.
+what a checkpoint stores. `save_config` / `load_config` keep a run's config
+as JSON beside its checkpoints.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any
 
 
@@ -48,3 +51,16 @@ class Config:
 
     def __repr__(self) -> str:
         return f"Config({self.to_dict()!r})"
+
+
+def save_config(cfg: Config, path: str) -> str:
+    """Write the config as JSON (the JAX package writes YAML)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f, indent=1, sort_keys=True)
+    return path
+
+
+def load_config(path: str) -> Config:
+    with open(path) as f:
+        return Config(json.load(f))

@@ -1,8 +1,17 @@
-"""Presets of the port; `get_preset(name)` resolves by the JAX preset name."""
+"""Presets of the port; `get_preset(name)` resolves by the JAX preset name.
+
+`parse_overrides` / `apply_overrides` take the CLIs' `--set key=value`
+pairs: values through `ast.literal_eval` (a plain string where that
+fails), dotted keys into the nested config.
+"""
 
 from __future__ import annotations
 
+import ast
+import difflib
 import importlib
+
+from ctdd_tpu_torch.config.base import Config
 
 _PRESETS = {
     "tauUnet_mnist": "ctdd_tpu_torch.config.presets.mnist_tau_unet",
@@ -20,3 +29,39 @@ def get_preset(name: str):
     if name not in _PRESETS:
         raise KeyError(f"no preset {name!r}; known: {preset_names()}")
     return importlib.import_module(_PRESETS[name]).get_config()
+
+
+def parse_overrides(pairs) -> dict:
+    out = {}
+    for p in pairs or []:
+        k, v = p.split("=", 1)
+        try:
+            out[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            out[k] = v
+    return out
+
+
+def apply_overrides(cfg: Config, overrides: dict) -> Config:
+    """Set each dotted key. Every section on the way must exist, else a
+    KeyError names the key and the nearest known ones; a new last key is
+    added (options read with a default, such as `optimizer.schedule`), as
+    ml_collections does for the JAX CLI."""
+    for dotted, v in overrides.items():
+        node = cfg
+        parts = dotted.split(".")
+        for i, p in enumerate(parts[:-1]):
+            if not isinstance(node, Config) or p not in node:
+                known = node.to_dict() if isinstance(node, Config) else {}
+                near = difflib.get_close_matches(p, list(known), n=3)
+                raise KeyError(
+                    f"bad override {dotted!r}: no config section "
+                    f"{'.'.join(parts[:i + 1])!r}; did you mean {near}? "
+                    f"known: {sorted(known)}"
+                )
+            node = node[p]
+        if not isinstance(node, Config):
+            raise KeyError(f"bad override {dotted!r}: {'.'.join(parts[:-1])!r} "
+                           "is a value, not a section")
+        node[parts[-1]] = v
+    return cfg

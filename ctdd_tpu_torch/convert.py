@@ -1,5 +1,6 @@
 """Carry flax weights across into the port's state dicts: the UNet
-(`unet_params_from_flax`) and the residual MLP (`mlp_params_from_flax`).
+(`unet_params_from_flax`) and the residual MLP (`mlp_params_from_flax`);
+and a whole JAX train state of the UNet (`train_state_from_flax`).
 
 Flax numbers submodules by creation order within each parent (`Conv_0` is
 the UNet's input conv, `Conv_1` its output head; `ResBlock_i` follow the
@@ -158,3 +159,39 @@ def mlp_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
         return f"{('ff_in', 'ff_out', 'films')[part]}.{layer}", "dense", path[1]
 
     return _state_dict_from_flax(tree, net, port_name)
+
+
+def _find_adam_state(opt_state):
+    """optax's ScaleByAdamState inside a (nested) chain state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _find_adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_flax(state, cfg):
+    """A JAX `TrainState` of the UNet (optax Adam/AdamW chain) -> the port's
+    `TrainState`, on the CPU: params, EMA params and optax's mu/nu through
+    the mapping of `unet_params_from_flax`; optax's count, `step` and
+    `ema_num_updates` carried across."""
+    from ctdd_tpu_torch.training.optimizers import AdamState
+    from ctdd_tpu_torch.training.state import TrainState
+
+    adam = _find_adam_state(state.opt_state)
+    if adam is None:
+        raise KeyError("no optax ScaleByAdamState (count, mu, nu) in opt_state")
+    params = {k: v.requires_grad_(True)
+              for k, v in unet_params_from_flax(state.params, cfg).items()}
+    return TrainState(
+        params=params,
+        ema_params=unet_params_from_flax(state.ema_params, cfg),
+        opt_state=AdamState(count=int(np.asarray(adam.count)),
+                            mu=unet_params_from_flax(adam.mu, cfg),
+                            nu=unet_params_from_flax(adam.nu, cfg)),
+        step=int(np.asarray(state.step)),
+        ema_num_updates=int(np.asarray(state.ema_num_updates)),
+    )

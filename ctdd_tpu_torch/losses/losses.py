@@ -1,0 +1,188 @@
+"""Training losses of the tauLDR main path: CTElbo and NLLOriginal.
+
+Counterpart of those losses in ctdd_tpu/losses/losses.py. Each is a
+function of (model, params, generator, batch): the generator draws the
+times, x_t and x̃ where JAX splits a key, and dropout draws from the
+device's default generator (the train step seeds it). The two
+(B, D, S) x (B, S, S) products are `torch.einsum`, as the JAX package keeps
+them outside any Pallas kernel. The other losses are ported in a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ctdd_tpu_torch import registry
+from ctdd_tpu_torch.ops import indexing
+from ctdd_tpu_torch.utils.math import categorical, mean_cross_entropy, safe_log
+
+
+def get_loss(cfg):
+    return registry.losses.get(cfg.loss.name)(cfg)
+
+
+def _flatten_batch(minibatch: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, D); already-flat batches pass through."""
+    if minibatch.ndim == 4:
+        return minibatch.reshape(minibatch.shape[0], -1)
+    return minibatch
+
+
+def _sample_ts(generator, B: int, min_time: float, max_t: float,
+               clamp_hi: Optional[float] = None) -> torch.Tensor:
+    ts = torch.rand((B,), generator=generator, device=generator.device)
+    ts = ts * (max_t - min_time) + min_time
+    if clamp_hi is not None:
+        ts = torch.clamp_max(ts, clamp_hi)
+    return ts
+
+
+def sample_xt(generator, qt0: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    """x_t ~ Cat(q_{t|0}(·|x0)) per dimension, int32 (B, D)."""
+    return categorical(generator, safe_log(indexing.rows(qt0, x0)))
+
+
+def sample_xt_xtilde(
+    generator, qt0: torch.Tensor, rate: torch.Tensor, x0: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample (x_t, x̃): x_t from q_{t|0}, then one uniformized jump of x_t.
+
+    x̃ differs from x_t in exactly one dimension, chosen ∝ off-diagonal rate
+    mass, with the new state drawn ∝ off-diagonal rates."""
+    B, D = x0.shape
+    x_t = sample_xt(generator, qt0, x0)
+    rate_rows = indexing.zero_at(indexing.rows(rate, x_t), x_t)  # (B, D, S)
+    dim_mass = rate_rows.sum(-1)  # (B, D)
+    square_dims = categorical(generator, safe_log(dim_mass)).long()  # (B,)
+    newval_probs = rate_rows[torch.arange(B, device=x0.device), square_dims]  # (B, S)
+    newval = categorical(generator, safe_log(newval_probs))  # (B,)
+    dim_onehot = torch.arange(D, device=x0.device)[None, :] == square_dims[:, None]
+    x_tilde = torch.where(dim_onehot, newval[:, None], x_t)
+    return x_t, x_tilde
+
+
+# ---------------------------------------------------------------------------
+# tauLDR CT-ELBO core
+# ---------------------------------------------------------------------------
+
+
+def _ctelbo_terms(model, params, generator, x0, ts, eps, one_forward_pass, train,
+                  samples=None):
+    """neg_elbo (scalar) and the training-pass logits.
+
+    `samples` optionally injects (x_t, x_tilde); `ts` is the caller's."""
+    B, D = x0.shape
+    qt0 = model.transition(ts)  # (B, S, S)
+    rate = model.rate(ts)  # (B, S, S)
+    S = qt0.shape[-1]
+
+    if samples is None:
+        x_t, x_tilde = sample_xt_xtilde(generator, qt0, rate, x0)
+    else:
+        x_t, x_tilde = samples
+
+    # -- regularizer term ----------------------------------------------------
+    x_logits = model.apply(params, x_t, ts, train=train)
+    p0t_reg = torch.softmax(x_logits, dim=-1)
+    reg_x = x_tilde if one_forward_pass else x_t
+
+    mask_reg = indexing.onehot_mask(reg_x, S)  # (B, D, S)
+    qt0_denom_reg = indexing.cols(qt0, reg_x) + eps  # q_{t|0}(x̃ | ·) columns
+    rate_vals_reg = indexing.cols(rate, reg_x)
+    # (mask·R(·,x̃)) @ q_{t|0}ᵀ
+    reg_tmp = torch.einsum("bds,bks->bdk", mask_reg * rate_vals_reg, qt0)
+    reg_term = torch.sum((p0t_reg / qt0_denom_reg) * reg_tmp, dim=(1, 2))  # (B,)
+
+    # -- signal term ---------------------------------------------------------
+    if one_forward_pass:
+        p0t_sig = p0t_reg
+    else:
+        p0t_sig = torch.softmax(model.apply(params, x_tilde, ts, train=train), dim=-1)
+
+    qt0_denom_sig = indexing.cols(qt0, x_tilde) + eps
+    inner_log_sig = torch.log(
+        torch.einsum("bds,bsk->bdk", p0t_sig / qt0_denom_sig, qt0) + eps
+    )
+
+    x_tilde_mask = indexing.onehot_mask(x_tilde, S)
+    outer_rate_sig = indexing.cols(rate, x_tilde)  # R(s, x̃_d) over s
+    outer_qt0_numer_sig = indexing.rows(qt0, x0)  # q_{t|0}(s | x0_d) over s
+    outer_qt0_denom_sig = indexing.elems(qt0, x0, x_tilde) + eps  # (B, D)
+
+    outer_sum_sig = torch.sum(
+        x_tilde_mask
+        * outer_rate_sig
+        * (outer_qt0_numer_sig / outer_qt0_denom_sig[:, :, None])
+        * inner_log_sig,
+        dim=(1, 2),
+    )
+
+    # -- Z_σ normalization ---------------------------------------------------
+    rate_row_sums = -indexing.diag(rate)  # (B, S)
+    base_Z_tmp = torch.gather(rate_row_sums, 1, x_tilde.long())  # (B, D)
+    base_Z = base_Z_tmp.sum(1)  # (B,)
+    Z_sig_norm = (
+        base_Z[:, None, None] - base_Z_tmp[:, :, None] + rate_row_sums[:, None, :]
+    )
+    sig_norm = torch.sum(
+        (outer_rate_sig * outer_qt0_numer_sig * x_tilde_mask)
+        / (Z_sig_norm * outer_qt0_denom_sig[:, :, None]),
+        dim=(1, 2),
+    )
+
+    sig_mean = torch.mean(-outer_sum_sig / sig_norm)
+    reg_mean = torch.mean(reg_term)
+    return sig_mean + reg_mean, x_logits
+
+
+def _no_label(loss, label):
+    if label is not None:
+        raise NotImplementedError(
+            f"{type(loss).__name__} with labels: label-conditional networks "
+            "(DiT) are ported in a later slice"
+        )
+
+
+@registry.losses.register
+class CTElbo:
+    """tauLDR continuous-time ELBO + nll_weight·CE."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.ratio_eps = cfg.loss.eps_ratio
+        self.nll_weight = cfg.loss.nll_weight
+        self.min_time = cfg.loss.min_time
+        self.one_forward_pass = cfg.loss.one_forward_pass
+        self.max_t = cfg.training.max_t
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
+        neg_elbo, x_logits = _ctelbo_terms(
+            model, params, generator, x0, ts, self.ratio_eps,
+            self.one_forward_pass, train,
+        )
+        return neg_elbo + self.nll_weight * mean_cross_entropy(x_logits, x0)
+
+
+@registry.losses.register
+class NLLOriginal:
+    """Plain CE of p^θ_{0|t}(x0 | x_t), x_t ~ q_{t|0}."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+        self.max_t = cfg.training.max_t
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
+        xt = sample_xt(generator, model.transition(ts), x0)
+        logits = model.apply(params, xt, ts, train=train)
+        return mean_cross_entropy(logits, x0)

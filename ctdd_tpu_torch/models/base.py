@@ -33,9 +33,13 @@ class DiffusionModel:
 
     def apply(
         self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
-        x: torch.Tensor, t: torch.Tensor,
+        x: torch.Tensor, t: torch.Tensor, train: bool = False,
     ) -> torch.Tensor:
-        """Network forward -> (B, D, S) logits."""
+        """Network forward -> (B, D, S) logits; `train` turns dropout on,
+        as the JAX package's `apply(train=True)` does."""
+        net = params if isinstance(params, nn.Module) else self.net
+        if net.training != train:
+            net.train(train)
         if isinstance(params, nn.Module):
             return params(x, t)
         return torch.func.functional_call(self.net, dict(params), (x, t))

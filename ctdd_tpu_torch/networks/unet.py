@@ -29,6 +29,16 @@ def _group_norm(ch: int) -> nn.GroupNorm:
     return nn.GroupNorm(min(ch // 4, 32), ch, eps=GN_EPS)
 
 
+@torch.no_grad()
+def _vs_uniform_(w: torch.Tensor, generator: torch.Generator, scale: float = 1.0):
+    """flax's variance_scaling(scale, "fan_avg", "uniform"), drawn on the CPU
+    from `generator` whatever `w`'s device."""
+    field = w[0, 0].numel() if w.dim() > 2 else 1
+    fan_avg = (w.shape[0] + w.shape[1]) * field / 2
+    limit = math.sqrt(3.0 * scale / fan_avg)
+    w.copy_((torch.rand(w.shape, generator=generator) * 2.0 - 1.0) * limit)
+
+
 def _conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
     # stride 1: SAME padding; stride 2: VALID after the caller's (0, 1) pad
     return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1 if stride == 1 else 0)
@@ -189,13 +199,34 @@ class UNet(nn.Module):
         self.norm_out = _group_norm(ch)
         self.conv_1 = _conv3x3(ch, out_channel * num_classes)
 
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """The JAX UNet's initializers: every conv and dense kernel
+        variance-scaling fan_avg/uniform, biases 0; each ResBlock's second
+        conv and the output head at scale 1e-10; the attention output
+        projection 0; GroupNorm scale 1, bias 0."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                _vs_uniform_(m.weight, generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for block in self.res_blocks:
+            _vs_uniform_(block.conv_1.weight, generator, scale=1e-10)
+        _vs_uniform_(self.conv_1.weight, generator, scale=1e-10)
+        for attn in self.attns:
+            attn.proj.weight.zero_()
+
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        temb = self.temb(t)
+        # the weights' dtype (float64 for a reference; no-ops in float32)
+        dtype = self.conv_0.weight.dtype
+        temb = self.temb(t).to(dtype)
         temb = self.dense_1(F.silu(self.dense_0(temb)))
         res, attns = iter(self.res_blocks), iter(self.attns)
         downs, ups = iter(self.downs), iter(self.ups)
 
-        hid = self.conv_0(center_data(x, self.x_min_max))
+        hid = self.conv_0(center_data(x, self.x_min_max).to(dtype))
         feats = [hid]
         n_block = len(self.channel_multiplier)
         for i in range(n_block):
@@ -254,6 +285,10 @@ class UNetWrapper(nn.Module):
             x_min_max=tuple(cfg.model.data_min_max),
             img_size=img_size,
         )
+
+    def init_weights(self, generator: torch.Generator):
+        """Draw the weights as the JAX package initializes them."""
+        self.unet.init_weights(generator)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         C, H, W = self.shape

@@ -21,6 +21,16 @@ def cols(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return rows(mat.transpose(1, 2), idx)
 
 
+def elems(mat: torch.Tensor, ridx: torch.Tensor, cidx: torch.Tensor) -> torch.Tensor:
+    """out[b, d] = mat[b, ridx[b, d], cidx[b, d]]  -> (B, D)."""
+    return torch.gather(rows(mat, ridx), 2, cidx.long()[:, :, None])[..., 0]
+
+
+def diag(mat: torch.Tensor) -> torch.Tensor:
+    """out[b, s] = mat[b, s, s]  -> (B, S)."""
+    return torch.diagonal(mat, dim1=1, dim2=2)
+
+
 def zero_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x with x[b, d, idx[b, d]] = 0 (the diagonal-mask pattern)."""
     S = x.shape[-1]

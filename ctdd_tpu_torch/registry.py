@@ -51,3 +51,7 @@ class Registry:
 models = Registry("model")
 samplers = Registry("sampler")
 processes = Registry("forward_process")
+losses = Registry("loss")
+optimizers = Registry("optimizer")
+train_steps = Registry("train_step")
+datasets = Registry("dataset")

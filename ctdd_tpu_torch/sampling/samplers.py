@@ -29,6 +29,7 @@ from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing, rate_kernels
 from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
 from ctdd_tpu_torch.utils.device import resolve_device
+from ctdd_tpu_torch.utils.math import gumbel_noise
 
 TAULDR_LOSSES = ("CTElbo", "NLL", "CTElboLambda", "NLLOriginal")
 
@@ -148,13 +149,6 @@ def _poisson_jump_update(generator, x, rates, h, S, is_ordinal: bool,
     diff = torch.arange(S, device=x.device, dtype=torch.int32)[None, None, :] - x[:, :, None]
     overall_jump = torch.sum(jump_nums * diff, dim=2)
     return torch.clamp(x + overall_jump, 0, S - 1).to(torch.int32)
-
-
-def gumbel_noise(generator, shape, device):
-    """Standard Gumbel draws -log(-log(u)), finite for every u in [0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
 def _categorical_euler_update(generator, x, rev_rates, h, g=None):

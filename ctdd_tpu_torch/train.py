@@ -1,0 +1,55 @@
+"""Training CLI of the port: a preset, overrides, the training loop.
+
+Usage:
+  python -m ctdd_tpu_torch.train --preset tauUnet_mnist \\
+      --set data.location=data/mnist/mnist.npz
+  python -m ctdd_tpu_torch.train --preset tauUnet_mnist --auto-resume
+  python -m ctdd_tpu_torch.train --preset tauUnet_mnist --device cpu --iters 2 \\
+      --set model.ch=8 ...
+
+Runs on the GPU unless `--device cpu` is given, and never falls back.
+Checkpoints land in <save_location>/<date>/<experiment>_<time>/checkpoints/
+as <step>.pt files that `python -m ctdd_tpu_torch.serve --ckpt` serves.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", required=True)
+    ap.add_argument("--iters", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume", default=None, help="checkpoint dir to resume")
+    ap.add_argument(
+        "--auto-resume", action="store_true",
+        help="resume the run of the last 7 days with an identical config and "
+             "the most progress",
+    )
+    ap.add_argument("--writer", default="numpy", choices=("numpy", "tensorboard", "none"))
+    ap.add_argument("--set", nargs="*", default=None, help="key=value overrides")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from ctdd_tpu_torch.config.presets import apply_overrides, get_preset, parse_overrides
+    from ctdd_tpu_torch.training.loop import train
+    from ctdd_tpu_torch.utils.bookkeeping import check_for_preempted_run
+
+    cfg = apply_overrides(get_preset(args.preset), parse_overrides(args.set))
+    if args.auto_resume and args.resume is None:
+        found = check_for_preempted_run(cfg.save_location, cfg.experiment_name, cfg)
+        if found:
+            args.resume = os.path.join(found, "checkpoints")
+            print(f"auto-resume: {args.resume}")
+    state, info = train(cfg, n_iters=args.iters, seed=args.seed,
+                        resume_from=args.resume, writer_kind=args.writer,
+                        device=args.device)
+    print(f"done: step={state.step} steps/sec={info['steps_per_sec']:.3f} "
+          f"run={info['paths']['root']}")
+
+
+if __name__ == "__main__":
+    main()

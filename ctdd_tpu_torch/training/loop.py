@@ -1,0 +1,181 @@
+"""The training loop, on one device.
+
+Counterpart of the single-device paths of ctdd_tpu/training/loop.py: train
+step (over a dataset on the device, or host batches when the dataset is
+larger than `training.device_data_bytes`) -> periodic checkpoint, loss log
+and sample grid with the EMA weights -> a final checkpoint, with a
+checkpoint between steps after SIGTERM/SIGINT/SIGCONT. Sample grids are
+saved as `samples_<step>.npy` (the PNG grid and the loss-curve PNG wait for
+the loggers port). Not ported yet, and refused with NotImplementedError: the
+label-conditional path, D3PM, `data.stream_fresh` and on-device
+augmentation (`data.use_augm`).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ctdd_tpu_torch.config.base import save_config
+from ctdd_tpu_torch.data.loaders import get_dataset, iterate_batches
+from ctdd_tpu_torch.losses.losses import get_loss
+from ctdd_tpu_torch.models.base import create_model
+from ctdd_tpu_torch.sampling.samplers import get_sampler
+from ctdd_tpu_torch.training.optimizers import get_optimizer
+from ctdd_tpu_torch.training.state import create_train_state
+from ctdd_tpu_torch.training.train_step import make_device_data_step, make_train_step
+from ctdd_tpu_torch.utils import bookkeeping
+from ctdd_tpu_torch.utils.device import resolve_device
+
+
+def _refuse_unported(cfg, model):
+    unported = {
+        "loss.name=d3pm (D3PM)": cfg.loss.name == "d3pm",
+        "data.stream_fresh": bool(cfg.data.get("stream_fresh", False)),
+        "data.use_augm (on-device augmentation)": bool(cfg.data.get("use_augm", False)),
+        "a label-conditional model": bool(getattr(model, "has_label", False)),
+        f"{type(model.net).__name__} (no init_weights)": not hasattr(model.net, "init_weights"),
+    }
+    named = [k for k, v in unported.items() if v]
+    if named:
+        raise NotImplementedError(
+            f"training with {', '.join(named)} is ported in a later slice")
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _save_sample_grid(model, state, sampler, out_dir: str, step: int,
+                      n_samples: int = 16) -> str:
+    """Sample with the EMA weights (seeded by the step); save the states."""
+    gen = torch.Generator(device=model.device).manual_seed(step)
+    samples, _ = sampler.sample(model, state.ema_params, gen, N=n_samples)
+    path = os.path.join(out_dir, f"samples_{step}.npy")
+    np.save(path, samples)
+    return path
+
+
+def train(
+    cfg,
+    *,
+    n_iters: Optional[int] = None,
+    seed: int = 0,
+    resume_from: Optional[str] = None,
+    writer_kind: str = "numpy",
+    log_every: int = 100,
+    profile_steps: Optional[tuple] = None,
+    device=None,
+):
+    """Run training on `device` (the GPU unless the caller passes another);
+    returns (state, info). `info["steps_per_sec"]` is the steady-state rate:
+    the first step, sample grids and checkpoint saves are left out.
+    `info["losses"]` holds the logged losses, `info["step_losses"]` every
+    step's (the 1e9 sentinel where a step was skipped)."""
+    device = resolve_device(device)
+    n_iters = n_iters if n_iters is not None else cfg.training.n_iters
+
+    # PyTorch's default init draws from the global generator: leave the
+    # caller's as it was; the weights are then drawn from `seed` as the JAX
+    # package initializes them
+    with torch.random.fork_rng(devices=[]):
+        model = create_model(cfg, device=device)
+    _refuse_unported(cfg, model)
+    model.net.init_weights(torch.Generator().manual_seed(seed))
+
+    paths = bookkeeping.create_experiment_folder(cfg.save_location, cfg.experiment_name)
+    save_config(cfg, os.path.join(paths["config"], "config.json"))
+    writer = bookkeeping.setup_writer(writer_kind, paths["root"])
+    ckpt = bookkeeping.CheckpointManager(paths["checkpoints"], cfg)
+
+    loss = get_loss(cfg)
+    tx = get_optimizer(cfg)
+    dataset = get_dataset(cfg)
+    state = create_train_state(dict(model.net.named_parameters()), tx)
+    if resume_from is not None:
+        state = bookkeeping.CheckpointManager(resume_from).restore(state)
+
+    device_data_cap = int(cfg.training.get("device_data_bytes", 512 * 2**20))
+    device_data = (bool(cfg.training.get("device_data", True))
+                   and dataset.data.nbytes <= device_data_cap)
+    ema_decay = float(cfg.model.get("ema_decay", 0.0))
+    if device_data:
+        data = torch.from_numpy(
+            dataset.data.reshape(len(dataset), -1).astype(np.int32)).to(device)
+        step_fn = make_device_data_step(model, loss, tx, cfg.data.batch_size,
+                                        ema_decay=ema_decay)
+    else:
+        batches = iterate_batches(dataset, cfg.data.batch_size,
+                                  shuffle=cfg.data.get("shuffle", True), seed=seed)
+        step_fn = make_train_step(model, loss, tx, ema_decay=ema_decay)
+
+    checkpoint_freq = cfg.saving.get("checkpoint_freq", 10000)
+    sample_freq = cfg.sampler.get("sample_freq", 0)
+    sampler = get_sampler(cfg) if sample_freq and sample_freq <= n_iters else None
+
+    preempt = bookkeeping.PreemptionHandler(paths["root"])
+    preempt.set_save_fn(lambda: ckpt.save(state.step, state))
+    preempt.install()
+    losses, step_losses = [], []
+    n_start = state.step
+    t_first = None  # end of the first step
+    t_aside = 0.0  # seconds in sample grids and checkpoint saves
+    prof = None
+    try:
+        for it in range(n_start, n_iters):
+            preempt.exit_if_preempted()  # between steps, where `state` is whole
+            if profile_steps and it == profile_steps[0]:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            if device_data:
+                state, lv = step_fn(state, data, seed)
+            else:
+                batch, _ = next(batches)
+                state, lv = step_fn(state, torch.from_numpy(batch).to(device), seed)
+            step_losses.append(lv)
+            if prof is not None and it == profile_steps[1]:
+                _sync(device)
+                prof.stop()
+                os.makedirs(os.path.join(paths["root"], "profile"), exist_ok=True)
+                prof.export_chrome_trace(os.path.join(paths["root"], "profile", "trace.json"))
+                prof = None
+            if t_first is None:
+                t_first = time.perf_counter()
+            t0 = time.perf_counter()
+            if (it + 1) % log_every == 0:
+                losses.append(lv)
+                writer.add_scalar("loss", lv, it + 1)
+                rate = (it - n_start) / max(t0 - t_first - t_aside, 1e-9)
+                print(f"iter {it + 1}/{n_iters} loss {lv:.5f} ({rate:.1f} steps/s)",
+                      flush=True)
+            if (it + 1) % checkpoint_freq == 0:
+                ckpt.save(it + 1, state)
+                # the loss history is durable at every checkpoint
+                writer.flush()
+            if sampler is not None and (it + 1) % sample_freq == 0:
+                _save_sample_grid(model, state, sampler, paths["pngs"], it + 1)
+            t_aside += time.perf_counter() - t0
+        _sync(device)
+        elapsed = (time.perf_counter() - t_first - t_aside) if t_first else 0.0
+        ckpt.save(n_iters, state)
+        preempt.exit_if_preempted()
+    finally:
+        if prof is not None:  # the window's end lies past the last step
+            prof.stop()
+        preempt.uninstall()
+        writer.flush()
+    return state, {
+        "paths": paths,
+        "losses": losses,
+        "step_losses": step_losses,
+        "steps_per_sec": max(n_iters - n_start - 1, 1) / max(elapsed, 1e-9),
+        "model": model,
+    }
