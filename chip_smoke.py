@@ -19,17 +19,17 @@ Phases (any fault exits non-zero; nothing is caught):
               tau-leap and LBJF steps on the card vs the CPU with the same
               injected noise
   6. steps    where a batch-16 TauL step's time goes (torch.profiler)
-  7. serving  a seeded full-width checkpoint served over HTTP: two 1000-step
-              batches of the flagship sampler with the fused update
+  7. serving  a seeded full-width checkpoint served over HTTP: one 1000-step
+              batch of the flagship sampler with the fused update
   8. rates    reverse-rates and Euler-posterior kernels vs their plain
               versions, per-sample and shared tables, real process tables
   9. timing   both kernels, plain versions and bounds at N=256 and N=16
               (phases 8 and 9 run straight after 4)
  10. steps    where a batch-16 LBJF step's time goes
- 11. serving  three more seeded checkpoints over HTTP, each with its exact
-              launch counts: the flagship with LBJF and a live corrector
-              (1000 steps), tauUnet_mnist_ll (MidPointTauL, fused) and
-              tauUnet_maze (LBJF/200)
+ 11. serving  three more seeded checkpoints over HTTP (no warm-up batch),
+              each with its exact launch counts: the flagship with LBJF and
+              a live corrector (1000 steps), tauUnet_mnist_ll (MidPointTauL,
+              fused) and tauUnet_maze (LBJF/200)
  12. training the flagship at full width on a seeded MNIST-shaped stand-in:
               (a) one B=4 step, card vs CPU, held to the CPU's own float32
               error against a float64 step, and a control with TF32 on
@@ -41,6 +41,15 @@ Phases (any fault exits non-zero; nothing is caught):
               resumed with Adam's moments zeroed that must fail; (d) the
               trained checkpoint served over
               HTTP (1000 launches)
+ 13. scoring  through the CLIs a user runs (`python -m ctdd_tpu_torch.*`):
+              (a) InceptionV3 from a seeded random npz, card vs CPU, and its
+              time per batch of 128 at 299x299; (b) mlp_synthetic trained 300
+              steps, both rate kernels vs plain at N=4096, then its MMD at the
+              reference protocol (25 x 4096, LBJF/100; 2500 launches of each)
+              between data vs data and uniform bits; (c) FIDs of [12]'s
+              checkpoint (256 fused TauL samples, 1000 launches per eval)
+              with trained, lenet and Inception features; (d) the bench at
+              100 sampler steps
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -326,56 +335,62 @@ def phase_rate_kernels(dev) -> dict:
     the entry at x to POST_LOG_TOL (values reach 80, one ulp there is 8e-6).
     The entry at x is 1 - h * sum, which cancels where h * sum ~ 1, so it is
     held in probability only."""
-    from ctdd_tpu_torch.ops import rate_kernels as rk
-
     worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
-    tiny = torch.finfo(torch.float32).tiny
     for N, D, S in [(16, 784, 256), (3, 77, 256), (16, 225, 3), (5, 32, 2), (3, 77, 8),
                     (2, 129, 256), (1, 5, 256), (2, 129, 12)]:
-        iota = torch.arange(S, device=dev)
         for per_sample, fracs in ((True, (0.1, 0.5, 0.95)), (False, (0.1,)),
                                   (False, (0.5,)), (False, (0.95,))):
             logits, qc, qt0, rc, x, h = rate_inputs(
                 N, D, S, fracs, N * D + int(100 * fracs[0]), dev, per_sample)
-            k = rk.reverse_rates(logits, qc, qt0, rc, x)
-            torch.cuda.synchronize()
-            p = rk.reverse_rates_plain(logits, qc, qt0, rc, x)
-            scale = p.abs().amax(-1, keepdim=True).clamp_min(tiny)
-            row_rel = ((k - p).abs() / scale).max().item()
-            at_x = k.gather(-1, x.long()[..., None])
-            what = (f"N={N} D={D} S={S} {'per-sample' if per_sample else 'shared'} "
-                    f"tables at {fracs}")
-            if not math.isfinite(row_rel) or row_rel > RATE_ROW_TOL:
-                raise AssertionError(f"reverse_rates {what}: {row_rel:.3e} of a row's max")
-            if bool((at_x != 0).any()):
-                raise AssertionError(f"reverse_rates {what}: entry at x not 0")
-            worst["rate_abs"] = max(worst["rate_abs"], (k - p).abs().max().item())
-            worst["rate_row_rel"] = max(worst["rate_row_rel"], row_rel)
-
-            off = p.sum(-1)
-            off_x = iota[None, None, :] != x[:, :, None]
-            dead_shares = []
-            # the sampler's own h, and one that drives half the rows to diag = 0
-            for hh in (h, float(1.0 / off.median())):
-                kp = rk.euler_posterior(k, x, hh)
-                torch.cuda.synchronize()
-                pp = rk.euler_posterior_plain(k, x, hh)
-                prob = (kp.exp() - pp.exp()).abs().max().item()
-                logd = ((kp - pp).abs() * off_x).max().item()
-                if not (math.isfinite(prob) and math.isfinite(logd)) or \
-                        prob > POST_PROB_TOL or logd > POST_LOG_TOL:
-                    raise AssertionError(
-                        f"euler_posterior {what} h={hh:.3g}: probabilities differ "
-                        f"by {prob:.3e}, log-values off x by {logd:.3e}")
-                worst["post_prob"] = max(worst["post_prob"], prob)
-                worst["post_log"] = max(worst["post_log"], logd)
-                dead_shares.append((hh * off >= 1).float().mean().item())
-            if not dead_shares[1] > 0:
-                raise AssertionError(f"euler_posterior {what}: no row with diag = 0")
-            log(f"  {what}: rates within {row_rel:.2e} of the row max, 0 at x; "
-                f"posterior agrees at h={h:.3g} and with diag=0 in "
-                f"{dead_shares[1]:.2f} of the rows")
+            hold_rate_kernels(f"N={N} D={D} S={S} {'per-sample' if per_sample else 'shared'} "
+                              f"tables at {fracs}", logits, qc, qt0, rc, x, h, worst)
     return worst
+
+
+def hold_rate_kernels(what, logits, qc, qt0, rc, x, h, worst):
+    """Both rate kernels on one input vs their plain versions (tolerances in
+    `phase_rate_kernels`); the posterior at `h` and at an h that drives half
+    the rows to diag = 0. Raises on a miss; `worst` keeps the largest
+    differences."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    tiny = torch.finfo(torch.float32).tiny
+    k = rk.reverse_rates(logits, qc, qt0, rc, x)
+    torch.cuda.synchronize()
+    p = rk.reverse_rates_plain(logits, qc, qt0, rc, x)
+    scale = p.abs().amax(-1, keepdim=True).clamp_min(tiny)
+    row_rel = ((k - p).abs() / scale).max().item()
+    at_x = k.gather(-1, x.long()[..., None])
+    if not math.isfinite(row_rel) or row_rel > RATE_ROW_TOL:
+        raise AssertionError(f"reverse_rates {what}: {row_rel:.3e} of a row's max")
+    if bool((at_x != 0).any()):
+        raise AssertionError(f"reverse_rates {what}: entry at x not 0")
+    worst["rate_abs"] = max(worst["rate_abs"], (k - p).abs().max().item())
+    worst["rate_row_rel"] = max(worst["rate_row_rel"], row_rel)
+
+    off = p.sum(-1)
+    off_x = torch.arange(p.shape[-1], device=p.device)[None, None, :] != x[:, :, None]
+    dead_shares = []
+    # the sampler's own h, and one that drives half the rows to diag = 0
+    for hh in (h, float(1.0 / off.median())):
+        kp = rk.euler_posterior(k, x, hh)
+        torch.cuda.synchronize()
+        pp = rk.euler_posterior_plain(k, x, hh)
+        prob = (kp.exp() - pp.exp()).abs().max().item()
+        logd = ((kp - pp).abs() * off_x).max().item()
+        if not (math.isfinite(prob) and math.isfinite(logd)) or \
+                prob > POST_PROB_TOL or logd > POST_LOG_TOL:
+            raise AssertionError(
+                f"euler_posterior {what} h={hh:.3g}: probabilities differ "
+                f"by {prob:.3e}, log-values off x by {logd:.3e}")
+        worst["post_prob"] = max(worst["post_prob"], prob)
+        worst["post_log"] = max(worst["post_log"], logd)
+        dead_shares.append((hh * off >= 1).float().mean().item())
+    if not dead_shares[1] > 0:
+        raise AssertionError(f"euler_posterior {what}: no row with diag = 0")
+    log(f"  {what}: rates within {row_rel:.2e} of the row max, 0 at x; "
+        f"posterior agrees at h={h:.3g} and with diag=0 in "
+        f"{dead_shares[1]:.2f} of the rows")
 
 
 def phase_rate_timing(dev) -> dict:
@@ -434,13 +449,10 @@ def phase_unet(dev):
     """Full-width logits and tau-leap steps: card vs the port's CPU."""
     # full f32 for the comparison only; serving (phase 7) keeps PyTorch's
     # defaults, TF32 convolutions included
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    from ctdd_tpu_torch.utils.device import tf32_off
+
+    with tf32_off():
         return _unet_vs_cpu(dev)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _unet_vs_cpu(dev):
@@ -572,18 +584,9 @@ def phase_step_breakdown(dev, cfg, kernel_names, steps: int = 20) -> dict:
     return out
 
 
-def kernel_wrappers() -> dict:
-    from ctdd_tpu_torch.ops import fused_update as fu
-    from ctdd_tpu_torch.ops import rate_kernels as rk
-
-    return {"fused_tau_leap_update": fu.fused_tau_leap_update,
-            "reverse_rates": rk.reverse_rates,
-            "euler_posterior": rk.euler_posterior}
-
-
-def serve_request(dev, tmpdir, label, cfg, n, expected, seed):
+def serve_request(dev, tmpdir, label, cfg, n, expected, seed, warmup=True):
     """Seeded checkpoint -> SamplerService -> one /generate?n= request over
-    HTTP (`serve_checkpoint`), after a warm-up batch."""
+    HTTP (`serve_checkpoint`), after a warm-up batch unless `warmup` is off."""
     from ctdd_tpu_torch.models.base import create_model
     from ctdd_tpu_torch.utils.bookkeeping import save_checkpoint
 
@@ -591,13 +594,14 @@ def serve_request(dev, tmpdir, label, cfg, n, expected, seed):
     model = create_model(cfg, device=dev)
     sd = model.net.state_dict()
     path = save_checkpoint(f"{tmpdir}/{label}.pt", sd, sd, step=0, config=cfg)
-    return serve_checkpoint(dev, label, cfg, path, n, expected, warmup=True)
+    return serve_checkpoint(dev, label, cfg, path, n, expected, warmup=warmup)
 
 
 def serve_checkpoint(dev, label, cfg, path, n, expected, warmup):
     """Checkpoint file -> SamplerService -> one /generate?n= request over
     HTTP. The launch counters are set to 0 just before the request and read
     just after; `expected` gives every kernel's exact count per batch."""
+    from ctdd_tpu_torch.ops import kernel_wrappers
     from ctdd_tpu_torch.serving import SamplerService, run_http_server
 
     svc = SamplerService(cfg, path, batch=16, device=dev)
@@ -651,16 +655,18 @@ def serve_checkpoint(dev, label, cfg, path, n, expected, warmup):
 
 
 def phase_serving(dev, tmpdir):
-    """The flagship with the fused TauL update: two batches of 16."""
+    """The flagship with the fused TauL update: one batch of 16 (two before
+    phase [13] came; cut for time)."""
     cfg = full_cfg(fused=True)
-    return serve_request(dev, tmpdir, "tauUnet_mnist TauL fused", cfg, 20,
+    return serve_request(dev, tmpdir, "tauUnet_mnist TauL fused", cfg, 16,
                          {"fused_tau_leap_update": cfg.sampler.num_steps}, seed=1)
 
 
 def phase_serving_slice2(dev, tmpdir):
     """LBJF with a live corrector at full width, MidPointTauL (fused) and
     the maze preset; every expected count comes from the sampler's own time
-    grid."""
+    grid. No warm-up batch (cut for time when phase [13] came: the kernels
+    and the network's layers are warm from [7])."""
     from ctdd_tpu_torch.sampling.samplers import get_sampler
 
     out = {}
@@ -674,19 +680,19 @@ def phase_serving_slice2(dev, tmpdir):
         f"corrector's entry time -> {per_batch} launches of each rate kernel")
     out["tauUnet_mnist LBJF corrector"] = serve_request(
         dev, tmpdir, "tauUnet_mnist LBJF corrector", cfg, 16,
-        {"reverse_rates": per_batch, "euler_posterior": per_batch}, seed=3)
+        {"reverse_rates": per_batch, "euler_posterior": per_batch}, seed=3, warmup=False)
 
     cfg = full_cfg(fused=True, preset="tauUnet_mnist_ll")
     n_steps = len(get_sampler(cfg).time_grid()[0])
     out["tauUnet_mnist_ll"] = serve_request(
         dev, tmpdir, "tauUnet_mnist_ll", cfg, 16,
-        {"fused_tau_leap_update": 2 * n_steps}, seed=4)
+        {"fused_tau_leap_update": 2 * n_steps}, seed=4, warmup=False)
 
     cfg = full_cfg(fused=False, preset="tauUnet_maze")
     steps = len(get_sampler(cfg).time_grid()[0])
     out["tauUnet_maze"] = serve_request(
         dev, tmpdir, "tauUnet_maze", cfg, 16,
-        {"reverse_rates": steps, "euler_posterior": steps}, seed=5)
+        {"reverse_rates": steps, "euler_posterior": steps}, seed=5, warmup=False)
     return out
 
 
@@ -703,11 +709,14 @@ FLOOR_MULT = 4.0  # (a) updates: allowed, in units of their floor
 MOVED_BY = 0.1  # (a): "moved otherwise" = updates that differ by > 0.1 lr
 MOVED_SHARE_ABS = 1e-4  # (a): ... plus this share of the entries
 RESUME_TOL = 2e-3  # (c): resumed vs uninterrupted, share of the distance trained
+BENCH_STEPS = 100  # phase [13](d): the bench's sampler steps (its protocol's 1000, cut for time)
 
 
 def mnist_like(path: str, n: int = 8192, seed: int = 0) -> str:
     """A seeded stand-in in MNIST's layout: uint8 (n, 28, 28) images, a
-    zero background and four bright strokes each, as `x_train`/`y_train`."""
+    zero background and four bright strokes each, as `x_train`/`y_train`;
+    an image's label is the decile of its mean intensity (for the trained
+    FID features of phase [13])."""
     rng = np.random.default_rng(seed)
     imgs = np.zeros((n, 28, 28), np.uint8)
     rows = np.arange(n)[:, None]
@@ -721,7 +730,9 @@ def mnist_like(path: str, n: int = 8192, seed: int = 0) -> str:
                 r = np.clip(np.rint(pts[..., 0]).astype(int) + dy, 0, 27)
                 c = np.clip(np.rint(pts[..., 1]).astype(int) + dx, 0, 27)
                 imgs[rows, r, c] = np.maximum(imgs[rows, r, c], val)
-    np.savez(path, x_train=imgs, y_train=np.zeros(n, np.int64))
+    ink = imgs.reshape(n, -1).mean(axis=1)
+    labels = np.searchsorted(np.quantile(ink, np.linspace(0.1, 0.9, 9)), ink)
+    np.savez(path, x_train=imgs, y_train=labels.astype(np.int64))
     return path
 
 
@@ -791,6 +802,7 @@ def phase_train_step(dev, data_path) -> dict:
     from ctdd_tpu_torch.losses.losses import sample_xt_xtilde
     from ctdd_tpu_torch.models.base import create_model
     from ctdd_tpu_torch.training.optimizers import get_optimizer
+    from ctdd_tpu_torch.utils.device import tf32
 
     cfg = full_cfg(fused=True)
     torch.manual_seed(0)
@@ -805,13 +817,11 @@ def phase_train_step(dev, data_path) -> dict:
     lr = float(cfg.optimizer.lr)
     weights = dict(cpu.net.named_parameters())
 
-    def on_card(tf32: bool):
+    def on_card(enabled: bool):
         """(tables' error against the CPU's, loss, grads, state after the
         step) on the card; the step updates its params in place, so it
         starts from a copy."""
-        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
-        try:
+        with tf32(enabled):
             table_err = max(
                 (gpu.transition(ts.to(dev)).cpu() - cpu.transition(ts)).abs().max().item(),
                 ((gpu.rate(ts.to(dev)).cpu() - cpu.rate(ts)).abs()
@@ -819,11 +829,9 @@ def phase_train_step(dev, data_path) -> dict:
             return (table_err, *one_train_step(
                 OnTables(gpu, cpu), {k: v.detach().clone().to(dev) for k, v in weights.items()},
                 tx, cfg, x0.to(dev), ts.to(dev), tuple(s.to(dev) for s in samples)))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
-    table_err, l_gpu, g_gpu, s_gpu = on_card(tf32=False)
-    table_tf32, _, g_tf32, _ = on_card(tf32=True)
+    table_err, l_gpu, g_gpu, s_gpu = on_card(enabled=False)
+    table_tf32, _, g_tf32, _ = on_card(enabled=True)
     l_cpu, g_cpu, s_cpu = one_train_step(
         cpu, {k: v.detach().clone() for k, v in weights.items()}, tx, cfg, x0, ts, samples)
     l_64, g_64, s_64 = one_train_step(
@@ -990,6 +998,7 @@ def phase_training(dev, tmpdir, data_path) -> dict:
     that checkpoint with Adam's moments zeroed, which must exceed it; (d)
     the trained checkpoint served over HTTP."""
     from ctdd_tpu_torch.config.base import Config
+    from ctdd_tpu_torch.ops import kernel_wrappers
     from ctdd_tpu_torch.training.loop import train
     from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
 
@@ -1082,6 +1091,7 @@ def phase_training(dev, tmpdir, data_path) -> dict:
         dev, "tauUnet_mnist trained 100 steps", served_cfg, path, 16,
         {"fused_tau_leap_update": served_cfg.sampler.num_steps}, warmup=False)
     return dict(
+        checkpoints=info["paths"]["checkpoints"],
         grid_launches=grid_launches, served_launches=launches, served_seconds=elapsed,
         record=dict(steps=100, seconds=seconds,
                     steps_per_s_loop=info["steps_per_sec"], peak_memory_gb=peak_gb,
@@ -1091,6 +1101,223 @@ def phase_training(dev, tmpdir, data_path) -> dict:
                     twin_loss_first10=twin_first, twin_loss_last10=twin_last, **breakdown,
                     resume={k: v for k, v in res.items()},
                     served_samples_per_s=16 / elapsed))
+
+# ---------------------------------------------------------------------------
+# phase 13: scoring what the port trains, through the CLIs a user runs
+# ---------------------------------------------------------------------------
+
+INCEPTION_TOL = 1e-5  # (a) features, card (f32, TF32 off) vs CPU, share of the largest |feature|
+FID_SAMPLES, FID_REAL = 256, 4096  # (c) sampled images (one batch), real images
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_cli(module: str, *args, env=None, timeout: int = 900) -> list:
+    """`python -m ctdd_tpu_torch.<module> args` from the checkout's root;
+    its stdout lines. Raises with its stderr if it fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"ctdd_tpu_torch.{module}", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                         env={**os.environ, **(env or {})})
+    if out.returncode != 0:
+        raise AssertionError(f"python -m ctdd_tpu_torch.{module} {' '.join(args)} exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    lines = out.stdout.strip().splitlines()
+    log(f"  python -m ctdd_tpu_torch.{module} {' '.join(args)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def random_inception_npz(path: str, seed: int = 0) -> str:
+    """Seeded random InceptionV3 weights in torchvision's layout, marked
+    `_family="pytorch-fid"` as the converter marks its npz: He-scaled convs,
+    BatchNorm near identity (activations stay of order 1 over 94 layers)."""
+    from ctdd_tpu_torch.metrics.inception import InceptionV3Features
+
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for k, v in InceptionV3Features().state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith("conv.weight"):
+            a = rng.standard_normal(shape) * math.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith("bn.weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif k.endswith("bn.running_var"):
+            a = 1.0 + 0.2 * np.abs(rng.standard_normal(shape))
+        else:  # bn.bias, bn.running_mean
+            a = 0.1 * rng.standard_normal(shape)
+        arrays[k] = a.astype(np.float32)
+    np.savez(path, _family=np.asarray("pytorch-fid"),
+             _source=np.asarray(f"random weights from seed {seed}"), **arrays)
+    return path
+
+
+def phase_inception(dev, npz: str, data_path: str) -> dict:
+    """(a) InceptionV3 from the strict npz loader on both devices: features
+    of 8 stand-in images (28x28, resized to 299) on the card in float32 with
+    TF32 off against the CPU's, within INCEPTION_TOL of the largest
+    |feature| (read 6.4e-7 on an H100); the control, the same with TF32 on
+    (read 6.3e-4), must exceed it; the device time of one batch of 128 at
+    299x299."""
+    from ctdd_tpu_torch.metrics.fid import preprocess_images
+    from ctdd_tpu_torch.metrics.inception import (
+        inception_network, inception_pool3_features, resize_299,
+    )
+    from ctdd_tpu_torch.utils.device import tf32, tf32_off
+
+    imgs = preprocess_images(np.load(data_path)["x_train"][:8])
+    ref = inception_pool3_features(npz, device="cpu")(imgs)
+    got = inception_pool3_features(npz, device=dev)(imgs)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max()) / scale
+    net = inception_network(npz, device=dev)
+    x = resize_299(torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2))
+    with torch.no_grad(), tf32(True):
+        tf32_feats = net(x).cpu().numpy()
+    tf32_err = float(np.abs(tf32_feats - ref).max()) / scale
+    big = torch.rand((128, 3, 299, 299), generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    with torch.no_grad(), tf32_off():
+        batch_ms = device_ms(lambda: net(big), 3)
+        batch_loop_ms = cuda_ms(lambda: net(big), 3, warmup=1)
+    out = dict(features=list(got.shape), max_abs_feature=scale, rel_err=err, tol=INCEPTION_TOL,
+               tf32_on_rel_err=tf32_err, batch128_device_ms=batch_ms,
+               batch128_loop_ms=batch_loop_ms)
+    log(f"  features {tuple(got.shape)}, card (f32, TF32 off) vs CPU: {err:.3e} of the largest "
+        f"|feature| {scale:.3f} (tol {INCEPTION_TOL:.0e}); control, TF32 on: {tf32_err:.3e} "
+        "(must exceed the tol)")
+    log(f"  one batch of 128 at 299x299 (f32, TF32 off): {batch_ms:.3f} ms device time "
+        f"({batch_loop_ms:.3f} ms between CUDA events)")
+    if not (got.shape == (8, 2048) and np.isfinite(got).all() and err <= INCEPTION_TOL):
+        raise AssertionError(f"Inception features on the card differ from the CPU's: {out}")
+    if not tf32_err > INCEPTION_TOL:
+        raise AssertionError(f"the Inception limit passes TF32 features: {out}")
+    return out
+
+
+def last_json(lines: list) -> dict:
+    return json.loads(lines[-1])
+
+
+def phase_mmd(dev, tmpdir: str) -> dict:
+    """(b) `mlp_synthetic` trained 300 steps by the train CLI, one LBJF step
+    at N=4096 of each rate kernel against its plain version, then the eval
+    CLI's MMD at the reference protocol (25 rounds x 4096 samples, EMA
+    weights, LBJF/100, all at once) with its exact launch counts; held
+    between data vs data and uniform random bits vs data."""
+    import re
+
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.data.loaders import get_dataset
+    from ctdd_tpu_torch.metrics.mmd import eval_mmd
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+    from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
+
+    lines = run_cli("train", "--preset", "mlp_synthetic", "--iters", "300", "--set",
+                    f"save_location={tmpdir}/mlp", "saving.checkpoint_freq=150")
+    m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
+    train_rate, ckpt_dir = float(m.group(1)), f"{m.group(2)}/checkpoints"
+    log(f"  {lines[-1]}")
+
+    cfg = get_preset("mlp_synthetic")
+    model = create_model(cfg, device=dev)
+    model.net.load_state_dict(load_checkpoint(f"{ckpt_dir}/300.pt", map_location=dev)["ema_params"])
+    model.net.eval()
+    sampler = get_sampler(cfg)
+    ts, hs = sampler.time_grid()
+    N, D = 4096, cfg.model.concat_dim
+    x = torch.randint(0, 2, (N, D), generator=torch.Generator(device=dev).manual_seed(0),
+                      device=dev, dtype=torch.int32)
+    worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
+    with torch.inference_mode():
+        for i in (0, 50, 99):
+            hold_rate_kernels(f"trained mlp_synthetic N={N} D={D} S=2 step {i} of the grid",
+                              *sampler._rev_rates_inputs(model, model.net, x, float(ts[i])),
+                              x, float(hs[i]), worst)
+
+    rounds, samples = 25, 4096
+    res = last_json(run_cli("eval", "--preset", "mlp_synthetic", "--ckpt", ckpt_dir,
+                            "--metric", "mmd", "--batch", "0"))
+    per_round = len(ts) + sampler.num_corrector_steps * int(
+        (ts <= np.float32(sampler.corrector_entry_time)).sum())
+    want = {"fused_tau_leap_update": 0, "reverse_rates": rounds * per_round,
+            "euler_posterior": rounds * per_round}
+    dataset = get_dataset(cfg)
+    uniform = eval_mmd(cfg, lambda g, n: torch.randint(0, 2, (n, D), generator=g, device=dev),
+                       dataset, rounds, samples, device=dev)
+    data = eval_mmd(cfg, lambda g, n: dataset.data[
+        torch.randint(0, len(dataset), (n,), generator=g, device=dev).cpu().numpy()],
+        dataset, rounds, samples, device=dev)
+    out = dict(mmd=res["value"], uniform_bits_mmd=uniform, data_vs_data_mmd=data,
+               rounds=rounds, samples=samples, train_steps_per_s=train_rate,
+               kernel_launches=res["kernel_launches"], expected_launches=want,
+               kernels_vs_plain=worst, device=res["device"])
+    log(f"  MMD of the trained model {res['value']:.6f}; uniform random bits "
+        f"{uniform:.6f}; data vs data {data:.3e}; launches {res['kernel_launches']} "
+        f"(expected {want}: {rounds} rounds x {per_round} LBJF steps)")
+    if res["kernel_launches"] != want:
+        raise AssertionError(f"eval mmd launches {res['kernel_launches']}, expected {want}")
+    if not (math.isfinite(res["value"]) and data < res["value"] < uniform):
+        raise AssertionError(f"the MMD is not between data vs data and uniform bits: {out}")
+    return out
+
+
+def phase_fid(ckpt_dir: str, data_path: str, npz: str) -> dict:
+    """(c) The eval CLI's FID of [12]'s trained flagship: 256 samples in one
+    batch of fused TauL (1000 launches per eval) against 4096 stand-in
+    images, with trained and lenet features, each above real vs real (256
+    other stand-in images) and below seeded uniform noise, both levels taken
+    by the same eval in the same features (`--fid-levels`); then with
+    Inception on (a)'s random-weight npz (a check of the pipeline at 299,
+    no quality number)."""
+    common = ["--preset", "tauUnet_mnist", "--ckpt", ckpt_dir, "--metric", "fid",
+              "--samples", str(FID_SAMPLES), "--batch", str(FID_SAMPLES), "--n-real",
+              str(FID_REAL), "--fid-levels", "--set", "sampler.use_fused_update=True",
+              f"data.location={data_path}"]
+    want = {"fused_tau_leap_update": 1000, "reverse_rates": 0, "euler_posterior": 0}
+    out = {}
+    for kind in ("trained", "lenet", "inception"):
+        extra = ["--inception-weights", npz] if kind == "inception" else []
+        res = last_json(run_cli("eval", *common, "--features", kind, *extra))
+        out[kind] = dict(fid=res["value"], real_vs_real=res["real_vs_real"], noise=res["noise"],
+                         kernel_launches=res["kernel_launches"], step=res["step"])
+        log(f"  FID ({kind}) of the model trained {res['step']} steps: {res['value']:.4f}; "
+            f"real vs real {res['real_vs_real']:.4f}; uniform noise {res['noise']:.4f}; "
+            f"launches {res['kernel_launches']}")
+        if res["kernel_launches"] != want:
+            raise AssertionError(f"eval fid {kind} launches {res['kernel_launches']}, "
+                                 f"expected {want}")
+        if not math.isfinite(res["value"]):
+            raise AssertionError(f"FID ({kind}) is not finite: {res}")
+        if kind != "inception" and not (res["real_vs_real"] < res["value"]
+                                        and res["real_vs_real"] < res["noise"]):
+            raise AssertionError(f"FID ({kind}) does not order real, model and noise: "
+                                 f"{out[kind]}")
+    return out
+
+
+def phase_bench(steps: int) -> dict:
+    """(d) The bench CLI at `steps` sampler steps (the protocol's 1000 cut
+    for time): its JSON line parses, every rate is positive, the bf16 keys
+    are null, and the kernels launched as its runs imply."""
+    res = last_json(run_cli("bench", "--set", f"sampler.num_steps={steps}"))
+    ex = res["extras"]
+    rates = {k: ex[k] for k in ("plain_samples_per_sec", "ctelbo_train_steps_per_sec",
+                                "fused_samples_per_sec")}
+    # a warm-up and three runs of each sampler; one plain step under the FLOP counter
+    want = {"fused_tau_leap_update": 4 * steps, "reverse_rates": 4 * steps + 1,
+            "euler_posterior": 0}
+    log("  bench: " + json.dumps(res))
+    if not (res["metric"] == "mnist_taul_samples_per_sec" and res["value"] > 0
+            and all(v and v > 0 for v in rates.values())
+            and ex["bf16_train_steps_per_sec"] is None and ex["bf16_train_mfu"] is None
+            and ex["sampler_steps"] == steps):
+        raise AssertionError(f"bad bench line: {res}")
+    if ex["kernel_launches"] != want:
+        raise AssertionError(f"bench launches {ex['kernel_launches']}, expected {want}")
+    return res
 
 
 def main() -> int:
@@ -1159,11 +1386,24 @@ def main() -> int:
         step_check = phase_train_step(dev, data_path)
         log("  (b) train() 100 steps with the in-loop grid, (c) resume, (d) serve")
         trained = phase_training(dev, tmpdir, data_path)
+        log("[13] scoring: the eval and bench CLIs")
+        log("  (a) InceptionV3, card vs CPU")
+        npz = random_inception_npz(f"{tmpdir}/inception_random.npz")
+        inception = phase_inception(dev, npz, data_path)
+        log("  (b) mlp_synthetic trained by the train CLI, its MMD by the eval CLI")
+        mmd = phase_mmd(dev, tmpdir)
+        log("  (c) FID of the flagship trained in [12]")
+        fid = phase_fid(trained["checkpoints"], data_path, npz)
+        log(f"  (d) the bench CLI at {BENCH_STEPS} sampler steps")
+        bench = phase_bench(BENCH_STEPS)
 
-    by_request = {"tauUnet_mnist TauL fused n=20": launches,
+    by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
                   "train() in-loop grid at step 100": trained["grid_launches"],
-                  "tauUnet_mnist trained 100 steps n=16": trained["served_launches"]}
+                  "tauUnet_mnist trained 100 steps n=16": trained["served_launches"],
+                  "eval mmd mlp_synthetic 25x4096": mmd["kernel_launches"],
+                  **{f"eval fid {kind} 256": r["kernel_launches"] for kind, r in fid.items()},
+                  f"bench {BENCH_STEPS} steps N=256": bench["extras"]["kernel_launches"]}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -1206,7 +1446,7 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"no served request launched {k['name']}")
     log("serving: " + json.dumps({
-        "samples_per_s": 32 / elapsed, "batch": 16, "steps": 1000,
+        "samples_per_s": 16 / elapsed, "batch": 16, "steps": 1000,
         **breakdown}))
     log("serving_lbjf: " + json.dumps({
         "samples_per_s": 16 / served["tauUnet_mnist LBJF corrector"][1],
@@ -1216,6 +1456,8 @@ def main() -> int:
         for label, (_, secs) in served.items()}))
     log("training: " + json.dumps({**trained["record"], "step_vs_cpu": step_check,
                                    "card": card_line()}))
+    log("scoring: " + json.dumps({"inception": inception, "mmd": mmd, "fid": fid,
+                                  "bench": bench, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

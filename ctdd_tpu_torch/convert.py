@@ -1,6 +1,8 @@
 """Carry flax weights across into the port's state dicts: the UNet
-(`unet_params_from_flax`) and the residual MLP (`mlp_params_from_flax`);
-and a whole JAX train state of the UNet (`train_state_from_flax`).
+(`unet_params_from_flax`), the residual MLP (`mlp_params_from_flax`), the FID
+feature nets (`inception_params_from_flax`, `lenet_params_from_flax`,
+`classifier_params_from_flax`); and a whole JAX train state of the UNet
+(`train_state_from_flax`).
 
 Flax numbers submodules by creation order within each parent (`Conv_0` is
 the UNet's input conv, `Conv_1` its output head; `ResBlock_i` follow the
@@ -54,6 +56,9 @@ _LISTS = {
 def _leaf(kind: str, leaf: str, a: np.ndarray):
     if kind == "norm":
         return {"scale": "weight", "bias": "bias"}[leaf], a
+    if kind == "bn":
+        return {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"}[leaf], a
     if leaf == "bias":
         return "bias", a
     if leaf != "kernel":
@@ -97,8 +102,10 @@ def _port_name(path: tuple) -> str:
 def _state_dict_from_flax(tree: Mapping, net, port_name) -> Dict[str, torch.Tensor]:
     """Map every flax leaf through `port_name(path) -> (module, layer kind,
     leaf)` onto `net`'s state dict. Raises on a leaf that is missing, left
-    over or of the wrong shape."""
-    want = {k: v.shape for k, v in net.state_dict().items()}
+    over or of the wrong shape; BatchNorm's step counters keep the net's
+    values."""
+    want = {k: v.shape for k, v in net.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
     sd = {}
     for path, a in _flatten(tree).items():
         module, layer, leaf = port_name(path)
@@ -111,7 +118,7 @@ def _state_dict_from_flax(tree: Mapping, net, port_name) -> Dict[str, torch.Tens
                 f"flax leaf {'/'.join(path)} -> {key}: shape {value.shape}, "
                 f"expected {tuple(want[key])}"
             )
-        sd[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
     missing = sorted(set(want) - set(sd))
     if missing:
         raise KeyError(f"no flax leaf for port parameters {missing}")
@@ -159,6 +166,51 @@ def mlp_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
         return f"{('ff_in', 'ff_out', 'films')[part]}.{layer}", "dense", path[1]
 
     return _state_dict_from_flax(tree, net, port_name)
+
+
+def inception_params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax `InceptionV3Features` variables ({"params": ..., "batch_stats":
+    ...}) -> the state dict of the port's `InceptionV3Features` (BatchNorm's
+    `num_batches_tracked` left out). Raises on a leaf that is missing, left
+    over or of the wrong shape."""
+    from ctdd_tpu_torch.metrics.inception import InceptionV3Features
+
+    def port_name(path: tuple):
+        if path[0] not in ("params", "batch_stats") or len(path) < 4 \
+                or path[-2] not in ("conv", "bn"):
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        return ".".join(path[1:-1]), path[-2], path[-1]
+
+    return _state_dict_from_flax(variables, InceptionV3Features(), port_name)
+
+
+def _lenet_params(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    kinds = {"Conv_0": "conv", "Conv_1": "conv", "Conv_2": "conv", "Dense_0": "dense",
+             "Dense_1": "dense"}
+
+    def port_name(path: tuple):
+        if len(path) != 2 or path[0] not in kinds:
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        return path[0].lower(), kinds[path[0]], path[1]
+
+    return _state_dict_from_flax(tree, net, port_name)
+
+
+def lenet_params_from_flax(tree: Mapping, feature_dim: int = 256) -> Dict[str, torch.Tensor]:
+    """The JAX package's random-conv FID net (`_lenet_features`' params) ->
+    the state dict of the port's `LeNetFeatures(feature_dim)`."""
+    from ctdd_tpu_torch.metrics.fid import LeNetFeatures
+
+    return _lenet_params(tree, LeNetFeatures(feature_dim))
+
+
+def classifier_params_from_flax(tree: Mapping, feature_dim: int = 256,
+                                n_classes: int = 10) -> Dict[str, torch.Tensor]:
+    """The JAX package's classifier feature net (`trained_classifier_features`'
+    params) -> the state dict of `LeNetFeatures(feature_dim, n_classes)`."""
+    from ctdd_tpu_torch.metrics.fid import LeNetFeatures
+
+    return _lenet_params(tree, LeNetFeatures(feature_dim, n_classes))
 
 
 def _find_adam_state(opt_state):

@@ -2,11 +2,13 @@
 
 Counterpart of ctdd_tpu/data/loaders.py. A dataset is an in-memory integer
 array; the training loop moves it to the device whole, or batch by batch
-when it is larger than `training.device_data_bytes`.
+when it is larger than `training.device_data_bytes`. Registered here:
+`SyntheticData` (the binarized 2D toy sets of data/synthetic.py).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, Optional
 
 import numpy as np
@@ -37,6 +39,24 @@ def iterate_batches(dataset, batch_size: int, *, shuffle: bool = True,
             batch_idx = idx[s : s + batch_size]
             labels = None if dataset.labels is None else dataset.labels[batch_idx]
             yield dataset.data[batch_idx], labels
+
+
+@registry.datasets.register(name="SyntheticData")
+def synthetic_data(cfg, root: Optional[str] = None) -> ArrayDataset:
+    """Binarized 2D synthetic data, (N, D) int32 bits: the .npy at
+    cfg.data.location where it exists, else generated from seed 0
+    (`data.num_samples` rows, 100000 by default)."""
+    from ctdd_tpu_torch.data.synthetic import generate_dataset
+
+    path = root or cfg.data.get("location", "")
+    if path and os.path.exists(path):
+        data = np.load(path)
+    else:
+        data, _ = generate_dataset(
+            cfg.data.type, int(cfg.data.get("num_samples", 100000)),
+            discrete_dim=cfg.data.shape[0], binmode=cfg.data.get("binmode", "gray"),
+            seed=0)
+    return ArrayDataset(data.astype(np.int32))
 
 
 def get_dataset(cfg, root: Optional[str] = None):

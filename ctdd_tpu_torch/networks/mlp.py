@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ctdd_tpu_torch.networks.common import TimeEmbedMLP, normalize_states
+from ctdd_tpu_torch.networks.common import TimeEmbedMLP, flax_init_, normalize_states
 
 
 class ResidualMLP(nn.Module):
@@ -33,6 +33,11 @@ class ResidualMLP(nn.Module):
         self.films = nn.ModuleList(
             nn.Linear(4 * temb_dim, 2 * d_model) for _ in range(num_layers))
         self.dense_out = nn.Linear(d_model, D * S)
+
+    def init_weights(self, generator: torch.Generator):
+        """The JAX package's initializers (flax's defaults): every Dense
+        kernel `lecun_normal`, biases 0, LayerNorm scale 1 and bias 0."""
+        flax_init_(self, generator)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         B, D = x.shape

@@ -222,11 +222,10 @@ class _SamplerBase:
         t_ones = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
         return model.apply(params, x, t_ones)
 
-    def _rev_rates(self, model, params, x, t: float, mats=None):
-        """Shared-timestep reverse rates through the reverse-rates kernel,
-        (N, D, S) with the entry at x already 0 (the JAX package's
-        `_rev_rates` leaves it; every caller masks it). `mats` takes the
-        (qt0, rate) tables at t where the caller has them already."""
+    def _rev_rates_inputs(self, model, params, x, t: float, mats=None):
+        """The reverse-rates kernel's inputs at a shared timestep: (logits,
+        qt0_denom, qt0, forward_rates). `mats` takes the (qt0, rate) tables
+        at t where the caller has them already."""
         if self.rate_param != "p0t":
             raise NotImplementedError(
                 f"rate_param={self.rate_param!r}: the CRM ratio path is "
@@ -237,7 +236,14 @@ class _SamplerBase:
         xl = x.long()
         qt0_denom = qt0.t()[xl] + self.eps_ratio  # [n, d, s] = qt0[s, x[n, d]]
         forward_rates = rate.t()[xl]  # R(s, x[n, d])
-        return rate_kernels.reverse_rates(logits, qt0_denom, qt0, forward_rates, x)
+        return logits, qt0_denom, qt0, forward_rates
+
+    def _rev_rates(self, model, params, x, t: float, mats=None):
+        """Shared-timestep reverse rates through the reverse-rates kernel,
+        (N, D, S) with the entry at x already 0 (the JAX package's
+        `_rev_rates` leaves it; every caller masks it)."""
+        return rate_kernels.reverse_rates(
+            *self._rev_rates_inputs(model, params, x, t, mats), x)
 
     def _corrector_rates(self, model, params, x, t: float):
         """Corrector rates R̂(x, ·) + R(x, ·), 0 at x."""

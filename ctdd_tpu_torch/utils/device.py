@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -13,3 +15,20 @@ def resolve_device(device=None) -> torch.device:
             'no CUDA device: pass device="cpu" to run the port on the CPU'
         )
     return dev
+
+
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """float32 matmuls and convolutions with TF32 rounding (`enabled`) or
+    without it inside the block; the caller's settings come back after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def tf32_off():
+    """`tf32(False)`: float32 without TF32 rounding inside the block."""
+    return tf32(False)

@@ -7,6 +7,8 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_collections", "ctdd_tpu", "orbax",
              "yaml")
@@ -58,10 +60,55 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_the_training_modules_are_covered():
-    """The rglob above reaches the training slice's modules."""
+def test_the_training_and_scoring_modules_are_covered():
+    """The rglob above reaches the training and scoring slices' modules."""
     assert {"ctdd_tpu_torch.train", "ctdd_tpu_torch.training.loop",
             "ctdd_tpu_torch.training.train_step", "ctdd_tpu_torch.training.optimizers",
             "ctdd_tpu_torch.training.state", "ctdd_tpu_torch.losses.losses",
             "ctdd_tpu_torch.data.images", "ctdd_tpu_torch.data.loaders",
-            "ctdd_tpu_torch.utils.math"} <= set(_modules())
+            "ctdd_tpu_torch.utils.math", "ctdd_tpu_torch.eval", "ctdd_tpu_torch.bench",
+            "ctdd_tpu_torch.metrics", "ctdd_tpu_torch.metrics.mmd",
+            "ctdd_tpu_torch.metrics.fid", "ctdd_tpu_torch.metrics.inception",
+            "ctdd_tpu_torch.data.synthetic", "ctdd_tpu_torch.data.maze",
+            "ctdd_tpu_torch.data.sudoku"} <= set(_modules())
+
+
+def test_eval_and_bench_run_as_modules_with_jax_blocked(tmp_path):
+    """`-m ctdd_tpu_torch.eval` and `-m ctdd_tpu_torch.bench` end to end in a
+    fresh process where importing JAX fails: an MLP checkpoint's samples,
+    and the bench's train step at a tiny width."""
+    from ctdd_tpu_torch.config.presets import apply_overrides, get_preset, parse_overrides
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.utils.bookkeeping import save_checkpoint
+
+    mlp = ["model.d_model=8", "model.hidden_dim=8", "model.temb_dim=8", "model.num_layers=1",
+           "sampler.num_steps=2"]
+    cfg = apply_overrides(get_preset("mlp_synthetic"), parse_overrides(mlp))
+    sd = create_model(cfg, device="cpu").net.state_dict()
+    save_checkpoint(str(tmp_path / "1.pt"), sd, sd, step=1, config=cfg)
+    tiny = ["data.image_size=8", "data.shape=[1,8,8]", "data.S=8", "model.concat_dim=64",
+            "model.ch=8", "model.num_res_blocks=1", "model.ch_mult=[1,2]",
+            "model.num_heads=2", "model.attn_resolutions=[4]"]
+    runs = [("ctdd_tpu_torch.eval", ["--preset", "mlp_synthetic", "--ckpt", str(tmp_path),
+                                     "--metric", "save_samples", "--samples", "3", "--out",
+                                     str(tmp_path / "s.npy"), "--device", "cpu", "--set", *mlp]),
+            ("ctdd_tpu_torch.bench", ["--device", "cpu", "--set", *tiny])]
+    code = "\n".join([
+        "import os, runpy, sys",
+        f"for m in {FORBIDDEN!r}:",
+        "    sys.modules[m] = None",
+        "import torch",
+        "torch.set_num_threads(1)",
+        "os.environ['BENCH_TRAIN_ONLY'] = '1'",
+        "os.environ['BENCH_BATCH'] = '2'",
+        f"for mod, argv in {runs!r}:",
+        "    sys.argv = [mod] + argv",
+        "    runpy.run_module(mod, run_name='__main__', alter_sys=True)",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert '"metric": "save_samples"' in "\n".join(lines)
+    assert '"metric": "ctelbo_train_steps_per_sec"' in lines[-1]
+    assert np.load(tmp_path / "s.npy").shape == (3, 32)
