@@ -33,7 +33,10 @@ Phases (any fault exits non-zero; nothing is caught):
  12. training the flagship at full width on a seeded MNIST-shaped stand-in:
               (a) one B=4 step, card vs CPU, held to the CPU's own float32
               error against a float64 step, and a control with TF32 on
-              that must fail; (b) train() for 100 B=64 steps
+              that must fail; the same step twice on the card, which
+              gradient leaves differ bit for bit, with the defaults and with
+              cudnn.deterministic (measurement only); (b) train() for 100
+              B=64 steps
               with one in-loop grid (1000 fused launches), a falling loss,
               steps/s, peak memory and a step breakdown, and 50 steps of
               tauUnet_mnist_ll; (c) a fresh train() from (b)'s checkpoint
@@ -49,7 +52,18 @@ Phases (any fault exits non-zero; nothing is caught):
               between data vs data and uniform bits; (c) FIDs of [12]'s
               checkpoint (256 fused TauL samples, 1000 launches per eval)
               with trained, lenet and Inception features; (d) the bench at
-              100 sampler steps
+              100 sampler steps (its bf16 train step included)
+ 14. hollow   the SDDM hollow family at full width: (a) holvisual_mnist
+              (D=784, S=256, 2 x 6 layers, attention readout) logits card vs
+              CPU, and one B=4 CatRM step held as (12a); (b) train() 50
+              B=64 steps, peak memory and the step's device split; (c) its
+              checkpoint served over HTTP (LBJF/1000: exactly 1000
+              Euler-posterior launches, none of the reverse rates); (d)
+              hollow_synthetic (ScoreElbo) and bert_synthetic (CTElbo)
+              trained 300 steps by the train CLI and scored by the eval
+              CLI's MMD (5 x 4096) with exact launch counts; (e) the
+              flagship's bf16 logits vs float32 on the card, and its bf16
+              train step
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -368,14 +382,25 @@ def hold_rate_kernels(what, logits, qc, qt0, rc, x, h, worst):
     worst["rate_abs"] = max(worst["rate_abs"], (k - p).abs().max().item())
     worst["rate_row_rel"] = max(worst["rate_row_rel"], row_rel)
 
-    off = p.sum(-1)
-    off_x = torch.arange(p.shape[-1], device=p.device)[None, None, :] != x[:, :, None]
+    hold_posterior(what, k, x, h, worst,
+                   f"rates within {row_rel:.2e} of the row max, 0 at x; ")
+
+
+def hold_posterior(what, rev, x, h, worst, prefix=""):
+    """The Euler-posterior kernel on the rates `rev` vs its plain version
+    (tolerances in `phase_rate_kernels`), at `h` and at an h that drives
+    half the rows to diag = 0. Raises on a miss; `worst` keeps the largest
+    differences."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    off = rev.sum(-1)
+    off_x = torch.arange(rev.shape[-1], device=rev.device)[None, None, :] != x[:, :, None]
     dead_shares = []
     # the sampler's own h, and one that drives half the rows to diag = 0
     for hh in (h, float(1.0 / off.median())):
-        kp = rk.euler_posterior(k, x, hh)
+        kp = rk.euler_posterior(rev, x, hh)
         torch.cuda.synchronize()
-        pp = rk.euler_posterior_plain(k, x, hh)
+        pp = rk.euler_posterior_plain(rev, x, hh)
         prob = (kp.exp() - pp.exp()).abs().max().item()
         logd = ((kp - pp).abs() * off_x).max().item()
         if not (math.isfinite(prob) and math.isfinite(logd)) or \
@@ -388,8 +413,7 @@ def hold_rate_kernels(what, logits, qc, qt0, rc, x, h, worst):
         dead_shares.append((hh * off >= 1).float().mean().item())
     if not dead_shares[1] > 0:
         raise AssertionError(f"euler_posterior {what}: no row with diag = 0")
-    log(f"  {what}: rates within {row_rel:.2e} of the row max, 0 at x; "
-        f"posterior agrees at h={h:.3g} and with diag=0 in "
+    log(f"  {what}: {prefix}posterior agrees at h={h:.3g} and with diag=0 in "
         f"{dead_shares[1]:.2f} of the rows")
 
 
@@ -767,52 +791,87 @@ class OnTables:
         return self.model.apply(params, x, t.to(self.dtype), train=train)
 
 
-def one_train_step(model, params, tx, cfg, x0, ts, samples):
-    """The flagship's step with injected times and (x_t, x̃), dropout off:
-    (loss, grads, state after the step)."""
+def ctelbo_loss(cfg):
+    """The flagship's loss on injected (x_t, x̃), dropout off."""
     from ctdd_tpu_torch.losses.losses import _ctelbo_terms
-    from ctdd_tpu_torch.training.state import create_train_state
-    from ctdd_tpu_torch.training.train_step import apply_update, value_and_grad
     from ctdd_tpu_torch.utils.math import mean_cross_entropy
 
-    def loss_fn(p):
+    def fn(model, p, x0, ts, draws):
         neg_elbo, logits = _ctelbo_terms(model, p, None, x0, ts, cfg.loss.eps_ratio,
-                                         cfg.loss.one_forward_pass, False, samples=samples)
+                                         cfg.loss.one_forward_pass, False, samples=draws)
         return neg_elbo + cfg.loss.nll_weight * mean_cross_entropy(logits, x0)
+    return fn
+
+
+def catrm_loss(cfg):
+    """CatRM (`cfg.loss.loss_type`) on an injected x_t, dropout off."""
+    from ctdd_tpu_torch.losses.losses import _catrm_comp_loss
+    from ctdd_tpu_torch.ops.logprob import logprob_with_logits
+
+    def fn(model, p, x0, ts, draws):
+        (xt,) = draws
+        logits = model.apply(p, xt, ts)
+        ll_all, ll_xt = logprob_with_logits(cfg.loss.logit_type, model, xt, ts, logits)
+        loss = _catrm_comp_loss(cfg, model, xt, ts, ll_all, ll_xt)
+        return torch.sum(loss * (1.0 - cfg.loss.ce_coeff)) / x0.shape[0]
+    return fn
+
+
+def one_train_step(model, params, tx, cfg, loss_fn, x0, ts, draws):
+    """One step of `loss_fn` on injected times and draws: (loss, grads,
+    state after the step)."""
+    from ctdd_tpu_torch.training.state import create_train_state
+    from ctdd_tpu_torch.training.train_step import apply_update, value_and_grad
 
     state = create_train_state(params, tx)
-    value, grads = value_and_grad(loss_fn, state.params)
+    value, grads = value_and_grad(lambda p: loss_fn(model, p, x0, ts, draws), state.params)
     state, _ = apply_update(state, value, grads, tx, float(cfg.model.ema_decay))
     return float(value), {k: g.cpu().double() for k, g in grads.items()}, state
 
 
 def phase_train_step(dev, data_path) -> dict:
-    """(a) One full-width step at batch 4, card vs CPU, TF32 off on the
-    card, both on the CPU's process tables (`OnTables`); the tables
-    themselves agree to TABLE_TOL. The ELBO's gradient carries 1/q_{t|0}
-    factors up to 1e9, so the card is held against the CPU's own float32
-    error, measured against a float64 step on the CPU:
-    per leaf, the largest |card - CPU| over the leaf's largest |g| must stay
-    within GRAD_FLOOR_MULT times the worst leaf's |CPU - float64|. After the
-    step, an Adam update moves a weight by about lr · sign(g): the share of
-    weights (and EMA entries) whose update differs by more than MOVED_BY · lr
-    must stay within FLOOR_MULT times the float32-vs-float64 share plus
-    MOVED_SHARE_ABS. A control repeats the card's side with TF32 on: its
-    tables and gradients must fail their limits."""
+    """(a) The flagship's step (`hold_train_step`), x̃ and x_t drawn once on
+    the CPU; and where the card's step differs from itself (`determinism`)."""
     from ctdd_tpu_torch.losses.losses import sample_xt_xtilde
     from ctdd_tpu_torch.models.base import create_model
-    from ctdd_tpu_torch.training.optimizers import get_optimizer
-    from ctdd_tpu_torch.utils.device import tf32
 
     cfg = full_cfg(fused=True)
     torch.manual_seed(0)
     cpu = create_model(cfg, device="cpu")
     gpu = create_model(cfg, device=dev)
-    gpu.net.load_state_dict(cpu.net.state_dict())
     x0 = torch.from_numpy(np.load(data_path)["x_train"][:4].reshape(4, -1).astype(np.int32))
     ts = torch.tensor([0.02, 0.1, 0.3, 0.6])
-    samples = sample_xt_xtilde(torch.Generator().manual_seed(0), cpu.transition(ts),
-                               cpu.rate(ts), x0)
+    draws = sample_xt_xtilde(torch.Generator().manual_seed(0), cpu.transition(ts),
+                             cpu.rate(ts), x0)
+    out = hold_train_step(cfg, cpu, gpu, ctelbo_loss(cfg), x0, ts, draws)
+    out["determinism"] = determinism(dev, cfg, cpu, gpu, ctelbo_loss(cfg), x0, ts, draws)
+    return out
+
+
+def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0) -> dict:
+    """One step at batch 4, card vs CPU, TF32 off on the card, both on the
+    CPU's process tables (`OnTables`); the tables themselves agree to
+    TABLE_TOL. The ELBO's gradient carries 1/q_{t|0} factors up to 1e9, so
+    the card is held against the CPU's own float32 error, measured against a
+    float64 step on the CPU: per leaf, the largest |card - CPU| over the
+    leaf's largest |g| (the network's, for a key bias) must stay within
+    GRAD_FLOOR_MULT times the worst leaf's |CPU - float64|. After the step, an Adam update moves a weight by
+    about lr · sign(g): the share of weights (and EMA entries) whose update
+    differs by more than MOVED_BY · lr must stay within FLOOR_MULT times the
+    float32-vs-float64 share plus MOVED_SHARE_ABS. A control repeats the
+    card's side with TF32 on: its tables and gradients must fail their
+    limits. `gpu` gets `cpu`'s weights. With `ulp_draws`, the CPU's own
+    float32 error is also taken as the largest change of its gradient when
+    each time moves by one float32 ulp up or down (that many seeded draws):
+    through the sinusoid's ~1000 rad arguments that moves the activations
+    by as much as float32 rounding does, and a gradient through ReLU gates
+    (the hollow family's) changes discretely where a gate flips, which one
+    float64 run does not show."""
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+    from ctdd_tpu_torch.utils.device import tf32
+
+    dev = gpu.device
+    gpu.net.load_state_dict(cpu.net.state_dict())
     tx = get_optimizer(cfg)
     lr = float(cfg.optimizer.lr)
     weights = dict(cpu.net.named_parameters())
@@ -828,20 +887,44 @@ def phase_train_step(dev, data_path) -> dict:
                  / cpu.rate(ts).abs().amax(-1, keepdim=True)).max().item())
             return (table_err, *one_train_step(
                 OnTables(gpu, cpu), {k: v.detach().clone().to(dev) for k, v in weights.items()},
-                tx, cfg, x0.to(dev), ts.to(dev), tuple(s.to(dev) for s in samples)))
+                tx, cfg, loss_fn, x0.to(dev), ts.to(dev), tuple(d.to(dev) for d in draws)))
 
     table_err, l_gpu, g_gpu, s_gpu = on_card(enabled=False)
     table_tf32, _, g_tf32, _ = on_card(enabled=True)
     l_cpu, g_cpu, s_cpu = one_train_step(
-        cpu, {k: v.detach().clone() for k, v in weights.items()}, tx, cfg, x0, ts, samples)
+        cpu, {k: v.detach().clone() for k, v in weights.items()}, tx, cfg, loss_fn, x0, ts,
+        draws)
     l_64, g_64, s_64 = one_train_step(
         OnTables(cpu, cpu, torch.float64), {k: v.double() for k, v in weights.items()},
-        tx, cfg, x0, ts.double(), samples)
+        tx, cfg, loss_fn, x0, ts.double(), draws)
+
+    # the hollow family's key biases have a zero gradient in exact
+    # arithmetic (the softmax over keys is invariant to them): those leaves
+    # hold rounding noise on every side and are scaled by the largest |g|
+    top = max(g.abs().max().item() for g in g_64.values())
+    scale = {k: top if k.endswith(("key.bias", "CrossAttention_0.Dense_1.bias"))
+             else g.abs().max().item() for k, g in g_64.items()}
 
     def grad_err(a, b):
-        return max(((a[k] - b[k]).abs().max() / g_64[k].abs().max()).item() for k in g_64)
+        return max((a[k] - b[k]).abs().max().item() / scale[k] for k in g_64)
 
-    grad_card, grad_floor = grad_err(g_gpu, g_cpu), grad_err(g_cpu, g_64)
+    grad_card, grad_f64 = grad_err(g_gpu, g_cpu), grad_err(g_cpu, g_64)
+    gen = torch.Generator().manual_seed(1)
+
+    def ts_ulp_off():
+        up = torch.rand(ts.shape, generator=gen) < 0.5
+        return torch.nextafter(ts, torch.where(up, torch.inf, -torch.inf))
+
+    grad_ulp = max((grad_err(one_train_step(
+        cpu, {k: v.detach().clone() for k, v in weights.items()}, tx, cfg, loss_fn, x0,
+        ts_ulp_off(), draws)[1], g_cpu) for _ in range(ulp_draws)), default=0.0)
+    grad_floor = max(grad_f64, grad_ulp)
+    # measurement only: the same step in float64 on the card
+    _, g_card64, _ = one_train_step(
+        OnTables(gpu, cpu, torch.float64),
+        {k: v.detach().double().to(dev) for k, v in weights.items()}, tx, cfg, loss_fn,
+        x0.to(dev), ts.double().to(dev), tuple(d.to(dev) for d in draws))
+    grad_float64_devices = grad_err(g_card64, g_64)
 
     def moved_otherwise(a, b):
         n = sum(v.numel() for v in a.values())
@@ -852,7 +935,9 @@ def phase_train_step(dev, data_path) -> dict:
         table_err=table_err, table_tol=TABLE_TOL,
         loss_card=l_gpu, loss_cpu=l_cpu, loss_float64=l_64,
         loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), loss_tol=TRAIN_LOSS_RTOL,
-        grad_err=grad_card, grad_floor=grad_floor, grad_tol=GRAD_FLOOR_MULT * grad_floor,
+        grad_err=grad_card, grad_floor=grad_floor, grad_vs_float64=grad_f64,
+        grad_ulp_spread=grad_ulp, grad_tol=GRAD_FLOOR_MULT * grad_floor,
+        grad_float64_card_vs_cpu=grad_float64_devices,
         params_moved_otherwise=moved_otherwise(s_gpu.params, s_cpu.params),
         params_floor=moved_otherwise(s_cpu.params, s_64.params),
         ema_moved_otherwise=moved_otherwise(s_gpu.ema_params, s_cpu.ema_params),
@@ -866,7 +951,10 @@ def phase_train_step(dev, data_path) -> dict:
         f"{out['loss_rel_err']:.3e} (tol {TRAIN_LOSS_RTOL:.0e})")
     log(f"  grads, worst leaf, share of its largest |g|: card vs CPU {grad_card:.3e} "
         f"(tol {out['grad_tol']:.3e} = {GRAD_FLOOR_MULT:g} x the CPU's float32 error "
-        f"{grad_floor:.3e} against float64)")
+        f"{grad_floor:.3e}: against float64 {grad_f64:.3e}"
+        + (f", with the times one ulp off ({ulp_draws} draws) {grad_ulp:.3e})"
+           if ulp_draws else ")")
+        + f"; in float64 on both, card vs CPU {grad_float64_devices:.3e} (not held)")
     for what in ("params", "ema"):
         log(f"  {what} after the step, share whose update differs by > {MOVED_BY:g} lr: "
             f"card vs CPU {out[what + '_moved_otherwise']:.3e} (tol {out[what + '_tol']:.3e}; "
@@ -885,11 +973,88 @@ def phase_train_step(dev, data_path) -> dict:
     return out
 
 
+def determinism(dev, cfg, cpu, gpu, loss_fn, x0, ts, draws) -> dict:
+    """Measurement only (nothing is held): the card's step taken twice from
+    the same state with PyTorch's defaults, which gradient leaves differ bit
+    for bit; the same with `torch.backends.cudnn.deterministic` on, scoped to
+    this block; the ops PyTorch itself names non-deterministic on this step
+    (`use_deterministic_algorithms(warn_only=True)`, scoped); and the cost of
+    cuDNN's deterministic algorithms on the network's forward and backward
+    at the preset's batch (turns: default, deterministic, deterministic,
+    default)."""
+    import warnings
+
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+
+    tx = get_optimizer(cfg)
+    weights = {k: v.detach().to(dev) for k, v in cpu.net.named_parameters()}
+    args = (x0.to(dev), ts.to(dev), tuple(d.to(dev) for d in draws))
+
+    def grads():
+        return one_train_step(OnTables(gpu, cpu), {k: v.clone() for k, v in weights.items()},
+                              tx, cfg, loss_fn, *args)[1]
+
+    def differing():
+        a, b = grads(), grads()
+        return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+    saved = torch.backends.cudnn.deterministic
+    default = differing()
+    try:
+        torch.backends.cudnn.deterministic = True
+        with_cudnn_det = differing()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message).split(" does not have")[0].strip()[:100]
+                    for w in caught if "deterministic" in str(w.message)})
+
+    B = cfg.data.batch_size
+    D, S = cfg.model.concat_dim, cfg.data.S
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, S, (B, D), generator=g, device=dev, dtype=torch.int32)
+    t = torch.rand(B, generator=g, device=dev) * 0.99 + 0.01
+    plist = list(weights.values())
+    for v in plist:
+        v.requires_grad_(True)
+    g_out = torch.randn((B, D, S), generator=g, device=dev)
+
+    def fwd_bwd():
+        torch.autograd.grad(gpu.apply(weights, x, t, train=True), plist, grad_outputs=g_out)
+
+    times = {False: [], True: []}
+    try:
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            times[det].append(cuda_ms(fwd_bwd, 5))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    out = dict(leaves=len(weights), differ_default=default,
+               differ_cudnn_deterministic=with_cudnn_det, named_nondeterministic_ops=named,
+               fwd_bwd_ms_default=float(np.mean(times[False])),
+               fwd_bwd_ms_cudnn_deterministic=float(np.mean(times[True])), batch=B)
+    log(f"  determinism: the same step twice on the card, leaves that differ bit for bit: "
+        f"{len(default)} of {len(weights)} with the defaults, {len(with_cudnn_det)} with "
+        f"cudnn.deterministic; ops PyTorch names non-deterministic: {named}; network "
+        f"forward+backward at B={B}: {out['fwd_bwd_ms_default']:.3f} ms default, "
+        f"{out['fwd_bwd_ms_cudnn_deterministic']:.3f} ms with cudnn.deterministic")
+    log(f"    differ with the defaults: {default[:12]}{' ...' if len(default) > 12 else ''}")
+    log(f"    differ with cudnn.deterministic: {with_cudnn_det[:12]}"
+        f"{' ...' if len(with_cudnn_det) > 12 else ''}")
+    return out
+
+
 def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
     """Where one B=64 train step's time goes: wall time, device time of the
-    whole step (torch.profiler), of the UNet's forward and backward alone and
-    of the optimizer and EMA alone (each traced alone on the same inputs);
-    the loss is the rest of the step's device time."""
+    whole step (torch.profiler), of the network's forward and backward alone
+    and of the optimizer and EMA alone (each traced alone on the same
+    inputs); the loss is the rest of the step's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from ctdd_tpu_torch.losses.losses import get_loss
@@ -904,7 +1069,7 @@ def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
     model = create_model(cfg, device=dev)
     tx = get_optimizer(cfg)
     state = create_train_state(dict(model.net.named_parameters()), tx)
-    data = torch.from_numpy(np.load(data_path)["x_train"].reshape(-1, 784).astype(np.int32)).to(dev)
+    data = torch.from_numpy(np.load(data_path)["x_train"].reshape(-1, cfg.model.concat_dim).astype(np.int32)).to(dev)
     B = cfg.data.batch_size
     decay = float(cfg.model.ema_decay)
     step = make_device_data_step(model, get_loss(cfg), tx, B, ema_decay=decay)
@@ -927,24 +1092,24 @@ def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
 
     x, t = data[:B], torch.rand(B, device=dev) * 0.99 + 0.01
     plist = list(state.params.values())
-    g_out = torch.randn((B, 784, cfg.data.S), device=dev)
+    g_out = torch.randn((B, cfg.model.concat_dim, cfg.data.S), device=dev)
 
-    def unet_fwd_bwd():
+    def net_fwd_bwd():
         torch.autograd.grad(model.apply(state.params, x, t, train=True), plist,
                             grad_outputs=g_out)
 
     value, grads = value_and_grad(
         lambda p: model.apply(p, x, t, train=True).float().square().mean(), state.params)
-    unet_ms = device_ms(unet_fwd_bwd, 5)
+    net_ms = device_ms(net_fwd_bwd, 5)
     opt_ms = device_ms(lambda: apply_update(state, value, grads, tx, decay), 5)
     out = dict(batch=B, step_ms=step_ms, steps_per_s=1e3 / step_ms,
-               device_busy_ms=busy_ms, unet_fwd_bwd_ms=unet_ms,
+               device_busy_ms=busy_ms, network_fwd_bwd_ms=net_ms,
                optimizer_ema_ms=opt_ms,
-               loss_ms=busy_ms - unet_ms - opt_ms if busy_ms else None,
+               loss_ms=busy_ms - net_ms - opt_ms if busy_ms else None,
                idle_share=1.0 - busy_ms / step_ms if busy_ms else None,
                device_kernels_per_step=sum(e.count for e in kernels) / 5)
     log(f"  B={B} train step: {step_ms:.3f} ms wall ({out['steps_per_s']:.2f} steps/s); "
-        f"device busy {busy_ms:.3f} ms: UNet forward+backward {unet_ms:.3f} ms, "
+        f"device busy {busy_ms:.3f} ms: network forward+backward {net_ms:.3f} ms, "
         f"optimizer+EMA {opt_ms:.3f} ms, loss (the rest) "
         + (f"{out['loss_ms']:.3f} ms" if busy_ms else "not measured")
         + f"; {out['device_kernels_per_step']:.0f} device kernels per step; idle share "
@@ -1201,11 +1366,19 @@ def last_json(lines: list) -> dict:
 
 
 def phase_mmd(dev, tmpdir: str) -> dict:
-    """(b) `mlp_synthetic` trained 300 steps by the train CLI, one LBJF step
-    at N=4096 of each rate kernel against its plain version, then the eval
-    CLI's MMD at the reference protocol (25 rounds x 4096 samples, EMA
-    weights, LBJF/100, all at once) with its exact launch counts; held
-    between data vs data and uniform random bits vs data."""
+    """(b) `mlp_synthetic` through the CLIs at the reference protocol (25
+    rounds x 4096 samples, LBJF/100): `cli_mmd`."""
+    return cli_mmd(dev, tmpdir, "mlp_synthetic", rounds=25)
+
+
+def cli_mmd(dev, tmpdir: str, preset: str, rounds: int) -> dict:
+    """`preset` trained 300 steps by the train CLI; on three steps of its
+    sampler's grid at N=4096, the rate kernels of its path against their
+    plain versions on the step's own inputs (the reverse rates and the
+    posterior on the p0t path; the posterior on the ratio path, whose rates
+    are plain torch); then the eval CLI's MMD (`rounds` x 4096 samples, EMA
+    weights, the preset's sampler, all at once) with its exact launch
+    counts; held between data vs data and uniform random bits vs data."""
     import re
 
     from ctdd_tpu_torch.config.presets import get_preset
@@ -1215,13 +1388,13 @@ def phase_mmd(dev, tmpdir: str) -> dict:
     from ctdd_tpu_torch.sampling.samplers import get_sampler
     from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
 
-    lines = run_cli("train", "--preset", "mlp_synthetic", "--iters", "300", "--set",
-                    f"save_location={tmpdir}/mlp", "saving.checkpoint_freq=150")
+    lines = run_cli("train", "--preset", preset, "--iters", "300", "--set",
+                    f"save_location={tmpdir}/{preset}", "saving.checkpoint_freq=150")
     m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
     train_rate, ckpt_dir = float(m.group(1)), f"{m.group(2)}/checkpoints"
     log(f"  {lines[-1]}")
 
-    cfg = get_preset("mlp_synthetic")
+    cfg = get_preset(preset)
     model = create_model(cfg, device=dev)
     model.net.load_state_dict(load_checkpoint(f"{ckpt_dir}/300.pt", map_location=dev)["ema_params"])
     model.net.eval()
@@ -1232,17 +1405,22 @@ def phase_mmd(dev, tmpdir: str) -> dict:
                       device=dev, dtype=torch.int32)
     worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
     with torch.inference_mode():
-        for i in (0, 50, 99):
-            hold_rate_kernels(f"trained mlp_synthetic N={N} D={D} S=2 step {i} of the grid",
-                              *sampler._rev_rates_inputs(model, model.net, x, float(ts[i])),
-                              x, float(hs[i]), worst)
+        for i in (0, len(ts) // 2, len(ts) - 1):
+            what = f"trained {preset} N={N} D={D} S=2 step {i} of the grid"
+            if sampler.rate_param == "p0t":
+                hold_rate_kernels(what, *sampler._rev_rates_inputs(
+                    model, model.net, x, float(ts[i])), x, float(hs[i]), worst)
+            else:
+                hold_posterior(what, sampler._rev_rates(model, model.net, x, float(ts[i])),
+                               x, float(hs[i]), worst, "ratio rates (plain torch); ")
 
-    rounds, samples = 25, 4096
-    res = last_json(run_cli("eval", "--preset", "mlp_synthetic", "--ckpt", ckpt_dir,
-                            "--metric", "mmd", "--batch", "0"))
+    samples = 4096
+    res = last_json(run_cli("eval", "--preset", preset, "--ckpt", ckpt_dir,
+                            "--metric", "mmd", "--batch", "0", "--rounds", str(rounds)))
     per_round = len(ts) + sampler.num_corrector_steps * int(
         (ts <= np.float32(sampler.corrector_entry_time)).sum())
-    want = {"fused_tau_leap_update": 0, "reverse_rates": rounds * per_round,
+    want = {"fused_tau_leap_update": 0,
+            "reverse_rates": rounds * per_round if sampler.rate_param == "p0t" else 0,
             "euler_posterior": rounds * per_round}
     dataset = get_dataset(cfg)
     uniform = eval_mmd(cfg, lambda g, n: torch.randint(0, 2, (n, D), generator=g, device=dev),
@@ -1250,15 +1428,18 @@ def phase_mmd(dev, tmpdir: str) -> dict:
     data = eval_mmd(cfg, lambda g, n: dataset.data[
         torch.randint(0, len(dataset), (n,), generator=g, device=dev).cpu().numpy()],
         dataset, rounds, samples, device=dev)
-    out = dict(mmd=res["value"], uniform_bits_mmd=uniform, data_vs_data_mmd=data,
-               rounds=rounds, samples=samples, train_steps_per_s=train_rate,
+    out = dict(preset=preset, loss=cfg.loss.name, rate_param=sampler.rate_param,
+               mmd=res["value"], uniform_bits_mmd=uniform, data_vs_data_mmd=data,
+               rounds=rounds, samples=samples, sampler_steps=len(ts),
+               train_steps_per_s=train_rate,
                kernel_launches=res["kernel_launches"], expected_launches=want,
                kernels_vs_plain=worst, device=res["device"])
-    log(f"  MMD of the trained model {res['value']:.6f}; uniform random bits "
+    log(f"  {preset}: MMD of the trained model {res['value']:.6f}; uniform random bits "
         f"{uniform:.6f}; data vs data {data:.3e}; launches {res['kernel_launches']} "
-        f"(expected {want}: {rounds} rounds x {per_round} LBJF steps)")
+        f"(expected {want}: {rounds} rounds x {per_round} steps)")
     if res["kernel_launches"] != want:
-        raise AssertionError(f"eval mmd launches {res['kernel_launches']}, expected {want}")
+        raise AssertionError(f"eval mmd {preset} launches {res['kernel_launches']}, "
+                             f"expected {want}")
     if not (math.isfinite(res["value"]) and data < res["value"] < uniform):
         raise AssertionError(f"the MMD is not between data vs data and uniform bits: {out}")
     return out
@@ -1300,24 +1481,265 @@ def phase_fid(ckpt_dir: str, data_path: str, npz: str) -> dict:
 
 def phase_bench(steps: int) -> dict:
     """(d) The bench CLI at `steps` sampler steps (the protocol's 1000 cut
-    for time): its JSON line parses, every rate is positive, the bf16 keys
-    are null, and the kernels launched as its runs imply."""
+    for time): its JSON line parses, every rate is positive (the bf16 train
+    step's too, with its MFU), and the kernels launched as its runs imply."""
     res = last_json(run_cli("bench", "--set", f"sampler.num_steps={steps}"))
     ex = res["extras"]
     rates = {k: ex[k] for k in ("plain_samples_per_sec", "ctelbo_train_steps_per_sec",
-                                "fused_samples_per_sec")}
+                                "fused_samples_per_sec", "bf16_train_steps_per_sec",
+                                "bf16_train_mfu")}
     # a warm-up and three runs of each sampler; one plain step under the FLOP counter
     want = {"fused_tau_leap_update": 4 * steps, "reverse_rates": 4 * steps + 1,
             "euler_posterior": 0}
     log("  bench: " + json.dumps(res))
     if not (res["metric"] == "mnist_taul_samples_per_sec" and res["value"] > 0
             and all(v and v > 0 for v in rates.values())
-            and ex["bf16_train_steps_per_sec"] is None and ex["bf16_train_mfu"] is None
             and ex["sampler_steps"] == steps):
         raise AssertionError(f"bad bench line: {res}")
     if ex["kernel_launches"] != want:
         raise AssertionError(f"bench launches {ex['kernel_launches']}, expected {want}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the SDDM hollow family, and the flagship's bf16 compute
+# ---------------------------------------------------------------------------
+
+LOGIT_FLOOR_MULT = 6.0  # (a) hollow logits, card vs CPU, in units of the CPU's float32 error
+HOLLOW_TRAIN_STEPS = 50  # (b)
+SYNTH_ROUNDS = 5  # (d) MMD rounds of 4096 samples (the protocol's 25, cut for time)
+BF16_FLOOR_MULT = 2.0  # (e) card bf16 vs f32 logits, in units of the CPU's own bf16 vs f32
+BF16_CONTROL_NOISE = 0.01  # (e) the control: weights perturbed by this relative noise
+
+
+def hollow_cfg(tmpdir: str, data_path: str):
+    """`holvisual_mnist` at its full width on the stand-in data."""
+    from ctdd_tpu_torch.config.presets import get_preset
+
+    cfg = get_preset("holvisual_mnist")
+    cfg.data.location = data_path
+    cfg.save_location = f"{tmpdir}/holvisual"
+    cfg.sampler.sample_freq = 0
+    cfg.saving.checkpoint_freq = HOLLOW_TRAIN_STEPS
+    return cfg
+
+
+def hollow_vs_cpu(dev, cfg, data_path) -> dict:
+    """(a) Full-width logits at B=2, card (TF32 off) vs the port's CPU, held
+    as [12](a) holds gradients: within LOGIT_FLOOR_MULT times the CPU's own
+    float32 error against float64 (share of the largest |logit|). The time
+    embedding's sinusoid reaches ~1000 rad at this preset's time scale, so
+    float32 rounding there (and the card's exp and sin, ulps apart from the
+    CPU's) moves the logits by ~1e-5: the float64 reference computes the
+    embedding in float64 too. The same logits with TF32 on are the control
+    that must fail. Then one B=4 CatRM step held as [12](a) holds the
+    flagship's (`hold_train_step`), x_t drawn once on the CPU."""
+    from ctdd_tpu_torch.losses.losses import sample_xt
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.utils.device import tf32, tf32_off
+
+    cpu = create_model(cfg, device="cpu")
+    cpu.net.init_weights(torch.Generator().manual_seed(0))
+    cpu.net.eval()
+    gpu = create_model(cfg, device=dev)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    gpu.net.eval()
+    n_params = sum(p.numel() for p in gpu.net.parameters())
+    g = np.random.default_rng(0)
+    x = torch.from_numpy(g.integers(0, 256, (2, 784)).astype(np.int32))
+    t = torch.tensor([0.3, 0.9])
+    with torch.inference_mode():
+        ref = cpu.apply(cpu.net, x, t)
+        ref64 = OnTables(cpu, cpu, torch.float64).apply(
+            {k: v.double() for k, v in cpu.net.state_dict().items()}, x, t)
+        with tf32_off():
+            got = gpu.apply(gpu.net, x.to(dev), t.to(dev)).cpu()
+        with tf32(True):
+            got_tf32 = gpu.apply(gpu.net, x.to(dev), t.to(dev)).cpu()
+    scale = ref64.abs().max().item()
+    floor = (ref.double() - ref64).abs().max().item() / scale
+    err = (got - ref).abs().max().item() / scale
+    err_tf32 = (got_tf32 - ref).abs().max().item() / scale
+    tol = LOGIT_FLOOR_MULT * floor
+    log(f"  holvisual_mnist {n_params / 1e6:.3f} M params, logits {tuple(got.shape)}, share "
+        f"of the largest |logit| {scale:.3f}: card vs CPU {err:.3e} (tol {tol:.3e} = "
+        f"{LOGIT_FLOOR_MULT:g} x the CPU's float32 error {floor:.3e} against float64); "
+        f"control, TF32 on: {err_tf32:.3e} (must exceed the tol)")
+    if not (got.shape == (2, 784, 256) and math.isfinite(err) and err <= tol):
+        raise AssertionError(f"hollow logits on the card differ from the CPU's by {err}")
+    if not err_tf32 > tol:
+        raise AssertionError(f"the hollow logit limit {tol} passes TF32 logits {err_tf32}")
+
+    x0 = torch.from_numpy(np.load(data_path)["x_train"][:4].reshape(4, -1).astype(np.int32))
+    ts = torch.tensor([0.02, 0.1, 0.3, 0.6])
+    xt = sample_xt(torch.Generator().manual_seed(0), cpu.transition(ts), x0)
+    log(f"  one B=4 {cfg.loss.name} ({cfg.loss.loss_type}, {cfg.loss.logit_type}) step, "
+        "card vs CPU")
+    step = hold_train_step(cfg, cpu, gpu, catrm_loss(cfg), x0, ts, (xt,), ulp_draws=4)
+    return dict(params=n_params, logits_rel_err=err, logits_floor=floor, logits_tol=tol,
+                logits_tf32_rel_err=err_tf32, step_vs_cpu=step)
+
+
+def hollow_training(dev, cfg, data_path) -> dict:
+    """(b) HOLLOW_TRAIN_STEPS B=64 steps through train(): a finite loss at
+    every step, steps/s, peak memory, and the step's device split."""
+    from ctdd_tpu_torch.training.loop import train
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, info = train(cfg, n_iters=HOLLOW_TRAIN_STEPS, seed=0, device=dev, log_every=25)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = np.asarray(info["step_losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    log(f"  {HOLLOW_TRAIN_STEPS} steps at B={cfg.data.batch_size} in {seconds:.1f} s: "
+        f"{info['steps_per_sec']:.3f} steps/s steady (first step and checkpoint saves left "
+        f"out); peak device memory {peak_gb:.2f} GB; mean loss of the first 10 steps "
+        f"{first:.4f}, last 10 {last:.4f}")
+    if not np.isfinite(losses).all() or losses.max() >= 1e9:
+        raise AssertionError(f"holvisual_mnist: non-finite or skipped losses: {losses.tolist()}")
+    log("  step breakdown")
+    breakdown = train_step_breakdown(dev, cfg, data_path)
+    return dict(checkpoint=f"{info['paths']['checkpoints']}/{HOLLOW_TRAIN_STEPS}.pt",
+                record=dict(steps=HOLLOW_TRAIN_STEPS, seconds=seconds,
+                            steps_per_s_loop=info["steps_per_sec"], peak_memory_gb=peak_gb,
+                            loss_first10=first, loss_last10=last, **breakdown))
+
+
+def hollow_serving(dev, path: str) -> dict:
+    """(c) The trained checkpoint served over HTTP, one batch of 16 after a
+    warm-up batch: the preset's CRMLBJF (= LBJF, 1000 steps, the corrector
+    off below min_t), so exactly 1000 Euler-posterior launches and none of
+    the reverse-rates kernel (the ratio rates are plain torch). First the
+    posterior kernel against its plain version on three steps' own inputs."""
+    from ctdd_tpu_torch.config.base import Config
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.sampling.samplers import get_initial_samples, get_sampler
+    from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
+
+    ckpt = load_checkpoint(path, map_location=dev)
+    cfg = Config(ckpt["config"])
+    model = create_model(cfg, device=dev)
+    model.net.load_state_dict(ckpt["ema_params"])
+    model.net.eval()
+    sampler = get_sampler(cfg)
+    ts, hs = sampler.time_grid()
+    steps = len(ts) + sampler.num_corrector_steps * int(
+        (ts <= np.float32(sampler.corrector_entry_time)).sum())
+    if steps != 1000 or sampler.rate_param != "ratio":
+        raise AssertionError(f"holvisual_mnist's sampler: {steps} launches, "
+                             f"{sampler.rate_param} rates")
+    x = get_initial_samples(torch.Generator(device=dev).manual_seed(0), 16, 784, 256,
+                            cfg.sampler.initial_dist, cfg.model.Q_sigma, device=dev)
+    worst = dict(post_prob=0.0, post_log=0.0)
+    with torch.inference_mode():
+        for i in (0, 500, 999):
+            hold_posterior(f"holvisual_mnist N=16 step {i} of the grid",
+                           sampler._rev_rates(model, model.net, x, float(ts[i])), x,
+                           float(hs[i]), worst, "ratio rates (plain torch); ")
+    launches, elapsed = serve_checkpoint(
+        dev, f"holvisual_mnist trained {HOLLOW_TRAIN_STEPS} steps", cfg, path, 16,
+        {"euler_posterior": steps}, warmup=True)
+    return dict(launches=launches, seconds=elapsed, samples_per_s=16 / elapsed, warm=True,
+                posterior_vs_plain=worst)
+
+
+def _full_scale_unet(cfg, dev):
+    """The flagship with its init, but the 1e-10 convolutions and the zero
+    attention projection drawn at full scale, so every layer moves the
+    logits (at the init they would be ~0)."""
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.networks.unet import _vs_uniform_
+
+    model = create_model(cfg, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    model.net.init_weights(gen)
+    unet = model.net.unet
+    with torch.no_grad():
+        for w in [b.conv_1.weight for b in unet.res_blocks] + [unet.conv_1.weight] + \
+                [a.proj.weight for a in unet.attns]:
+            draw = torch.empty(w.shape)
+            _vs_uniform_(draw, gen)
+            w.copy_(draw)
+    model.net.eval()
+    return model
+
+
+def bf16_check(dev, data_path, f32_breakdown) -> dict:
+    """(e) The flagship's bf16 logits against its float32 logits on the
+    card, on the same full-scale weights and four stand-in images: within
+    BF16_FLOOR_MULT times the CPU's own bf16 vs float32 distance on the same
+    weights and inputs (the CPU's bf16 path is held to JAX's in
+    tests/test_torch_unet.py); the control, float32 logits of the weights
+    perturbed by BF16_CONTROL_NOISE relative noise, must exceed it. Then the
+    bf16 train step's breakdown at B=64 beside [12](b)'s float32 one."""
+    from ctdd_tpu_torch.config.base import Config
+    from ctdd_tpu_torch.utils.device import tf32_off
+
+    cfg32 = full_cfg(fused=True)
+    cfg16 = Config(cfg32.to_dict())
+    cfg16.model.compute_dtype = "bfloat16"
+    x = torch.from_numpy(np.load(data_path)["x_train"][:4].reshape(4, -1).astype(np.int32))
+    t = torch.tensor([0.1, 0.3, 0.6, 0.9])
+    logits = {}
+    for where in ("cpu", dev):
+        m32 = _full_scale_unet(cfg32, where)
+        m16 = _full_scale_unet(cfg16, where)
+        with torch.inference_mode(), tf32_off():
+            logits[str(where), 32] = m32.apply(m32.net, x.to(where), t.to(where)).cpu()
+            logits[str(where), 16] = m16.apply(m16.net, x.to(where), t.to(where)).cpu()
+            if where != "cpu":
+                gen = torch.Generator(device=dev).manual_seed(1)
+                noisy = {k: v * (1 + BF16_CONTROL_NOISE * torch.randn(
+                    v.shape, generator=gen, device=dev)) for k, v in m32.net.state_dict().items()}
+                logits["control"] = m32.apply(noisy, x.to(dev), t.to(dev)).cpu()
+    card, ref = logits[str(dev), 32], logits[str(dev), 16]
+    scale = card.abs().max().item()
+    cpu_gap = (logits["cpu", 16] - logits["cpu", 32]).abs().max().item() / scale
+    card_gap = (ref - card).abs().max().item() / scale
+    control = (logits["control"] - card).abs().max().item() / scale
+    f32_cards = (card - logits["cpu", 32]).abs().max().item() / scale
+    tol = BF16_FLOOR_MULT * cpu_gap
+    log(f"  bf16 vs float32 logits, share of the largest |logit| {scale:.3f}: card "
+        f"{card_gap:.3e} (tol {tol:.3e} = {BF16_FLOOR_MULT:g} x the CPU's {cpu_gap:.3e}); "
+        f"control, float32 with the weights {BF16_CONTROL_NOISE:g} off: {control:.3e} (must "
+        f"exceed the tol); float32 card vs CPU {f32_cards:.3e}")
+    if not (torch.isfinite(ref).all() and card_gap <= tol and card_gap > 0):
+        raise AssertionError(f"bf16 logits on the card: {card_gap} (tol {tol})")
+    if not control > tol:
+        raise AssertionError(f"the bf16 limit {tol} passes the control {control}")
+    log("  bf16 train step breakdown (B=64)")
+    breakdown = train_step_breakdown(dev, cfg16, data_path)
+    return dict(card_bf16_vs_f32=card_gap, cpu_bf16_vs_f32=cpu_gap, tol=tol,
+                control=control, control_noise=BF16_CONTROL_NOISE, f32_card_vs_cpu=f32_cards,
+                train_step_bf16=breakdown,
+                train_step_f32={k: f32_breakdown[k] for k in (
+                    "step_ms", "steps_per_s", "device_busy_ms", "network_fwd_bwd_ms",
+                    "loss_ms", "optimizer_ema_ms", "idle_share")})
+
+
+def phase_hollow(dev, tmpdir: str, data_path: str, f32_breakdown: dict) -> dict:
+    """Phase [14]: (a)-(c) `holvisual_mnist` at full width, (d) the
+    synthetic hollow and Bert presets through the CLIs, (e) bf16."""
+    t0 = time.perf_counter()
+    cfg = hollow_cfg(tmpdir, data_path)
+    log("  (a) holvisual_mnist, card vs CPU")
+    vs_cpu = hollow_vs_cpu(dev, cfg, data_path)
+    log(f"  (b) train() {HOLLOW_TRAIN_STEPS} steps")
+    trained = hollow_training(dev, cfg, data_path)
+    log("  (c) serving the trained checkpoint")
+    served = hollow_serving(dev, trained["checkpoint"])
+    log(f"  (d) hollow_synthetic and bert_synthetic through the CLIs, MMD at "
+        f"{SYNTH_ROUNDS} x 4096")
+    synthetic = {p: cli_mmd(dev, tmpdir, p, rounds=SYNTH_ROUNDS)
+                 for p in ("hollow_synthetic", "bert_synthetic")}
+    log("  (e) bf16 compute of the flagship")
+    bf16 = bf16_check(dev, data_path, f32_breakdown)
+    seconds = time.perf_counter() - t0
+    log(f"  phase [14]: {seconds:.1f} s")
+    return dict(vs_cpu=vs_cpu, training=trained["record"], serving=served,
+                synthetic=synthetic, bf16=bf16, seconds=seconds)
 
 
 def main() -> int:
@@ -1396,6 +1818,8 @@ def main() -> int:
         fid = phase_fid(trained["checkpoints"], data_path, npz)
         log(f"  (d) the bench CLI at {BENCH_STEPS} sampler steps")
         bench = phase_bench(BENCH_STEPS)
+        log("[14] the SDDM hollow family at full width, and the flagship's bf16 compute")
+        hollow = phase_hollow(dev, tmpdir, data_path, trained["record"])
 
     by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
@@ -1403,7 +1827,11 @@ def main() -> int:
                   "tauUnet_mnist trained 100 steps n=16": trained["served_launches"],
                   "eval mmd mlp_synthetic 25x4096": mmd["kernel_launches"],
                   **{f"eval fid {kind} 256": r["kernel_launches"] for kind, r in fid.items()},
-                  f"bench {BENCH_STEPS} steps N=256": bench["extras"]["kernel_launches"]}
+                  f"bench {BENCH_STEPS} steps N=256": bench["extras"]["kernel_launches"],
+                  f"holvisual_mnist trained {HOLLOW_TRAIN_STEPS} steps n=16":
+                      hollow["serving"]["launches"],
+                  **{f"eval mmd {p} {SYNTH_ROUNDS}x4096": r["kernel_launches"]
+                     for p, r in hollow["synthetic"].items()}}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -1458,6 +1886,7 @@ def main() -> int:
                                    "card": card_line()}))
     log("scoring: " + json.dumps({"inception": inception, "mmd": mmd, "fid": fid,
                                   "bench": bench, "card": card_line()}))
+    log("hollow: " + json.dumps({**hollow, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

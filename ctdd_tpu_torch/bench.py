@@ -8,6 +8,10 @@ with the same metric name, unit and `extras` keys:
   same without it;
 - `ctelbo_train_steps_per_sec`: CTElbo train steps/s at the preset's batch
   (64), 10 steps after one;
+- `bf16_train_steps_per_sec`: the same step with `model.compute_dtype =
+  "bfloat16"` (float32 weights, bf16 convolutions and Dense layers), on the
+  same initial weights and batch; `bf16_train_mfu` over the float32 step's
+  FLOPs, as the JAX bench takes it;
 - FLOPs per train step and per sampler step, counted over one call by
   `torch.utils.flop_counter.FlopCounterMode` (matmuls and convolutions; the
   fused kernel, a ctypes call, is not seen), and the MFUs against the card's
@@ -15,8 +19,7 @@ with the same metric name, unit and `extras` keys:
 - `device`: the card's name and power limit.
 
 `vs_baseline` and `train_vs_baseline` are null: the JAX side's constants are
-torch-CPU times on another host. The `bf16_*` keys stay null until
-`model.compute_dtype` is ported. Weights are drawn from seed 0 with the JAX
+torch-CPU times on another host. Weights are drawn from seed 0 with the JAX
 package's initializers; the sampler runs on them, untrained.
 
 Environment, as the JAX bench: BENCH_BATCH (train batch), BENCH_TRAIN_ONLY
@@ -105,6 +108,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    from ctdd_tpu_torch.config.base import Config
     from ctdd_tpu_torch.config.presets import apply_overrides, get_preset, parse_overrides
     from ctdd_tpu_torch.losses.losses import get_loss
     from ctdd_tpu_torch.models.base import create_model
@@ -125,24 +129,35 @@ def main(argv=None):
     D, S, B = cfg.model.concat_dim, cfg.data.S, cfg.data.batch_size
     peak = peak_flops(device)
 
-    # --- train step throughput (CTElbo) ----------------------------------
-    # on a copy of the weights: the sampler below runs on the initial ones,
+    # --- train step throughput (CTElbo), float32 then bf16 compute -------
+    # on copies of the weights: the sampler below runs on the initial ones,
     # as the JAX bench's does
     tx = get_optimizer(cfg)
-    state = create_train_state(
-        {k: v.detach().clone() for k, v in model.net.named_parameters()}, tx)
-    step = make_train_step(model, get_loss(cfg), tx, ema_decay=float(cfg.model.ema_decay))
     batch = torch.randint(0, S, (B, D), generator=torch.Generator(device=device).manual_seed(9),
                           device=device, dtype=torch.int32)
-    train_flops, (state, _) = counted_flops(lambda: step(state, batch, 10))
-    _sync(device)
-    t0 = time.perf_counter()
-    for i in range(N_TRAIN):
-        state, _ = step(state, batch, 11 + i)
-    _sync(device)
-    train_steps_per_sec = N_TRAIN / (time.perf_counter() - t0)
+
+    def train_rate(train_model) -> tuple:
+        """(FLOPs of one step, steps/s over N_TRAIN steps after it)."""
+        state = create_train_state(
+            {k: v.detach().clone() for k, v in model.net.named_parameters()}, tx)
+        step = make_train_step(train_model, get_loss(cfg), tx,
+                               ema_decay=float(cfg.model.ema_decay))
+        flops, (state, _) = counted_flops(lambda: step(state, batch, 10))
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(N_TRAIN):
+            state, _ = step(state, batch, 11 + i)
+        _sync(device)
+        return flops, N_TRAIN / (time.perf_counter() - t0)
+
+    train_flops, train_steps_per_sec = train_rate(model)
     train_mfu = round(train_flops * train_steps_per_sec / peak, 4) if peak else None
-    del state
+    cfg_bf16 = apply_overrides(Config(cfg.to_dict()), {"model.compute_dtype": "bfloat16"})
+    with torch.random.fork_rng(devices=[]):
+        model_bf16 = create_model(cfg_bf16, device=device)
+    _, bf16_steps_per_sec = train_rate(model_bf16)
+    bf16_mfu = round(train_flops * bf16_steps_per_sec / peak, 4) if peak else None
+    del model_bf16
     dev_line = device_line(device)
 
     if os.environ.get("BENCH_TRAIN_ONLY"):
@@ -154,8 +169,8 @@ def main(argv=None):
             "extras": {
                 "train_flops_per_step": train_flops,
                 "train_mfu": train_mfu,
-                "bf16_train_steps_per_sec": None,
-                "bf16_train_mfu": None,
+                "bf16_train_steps_per_sec": round(bf16_steps_per_sec, 4),
+                "bf16_train_mfu": bf16_mfu,
                 "train_batch": B,
                 "device": dev_line,
                 "peak_flops": peak,
@@ -200,8 +215,8 @@ def main(argv=None):
             "device": dev_line,
             "train_flops_per_step": train_flops,
             "train_mfu": train_mfu,
-            "bf16_train_steps_per_sec": None,
-            "bf16_train_mfu": None,
+            "bf16_train_steps_per_sec": round(bf16_steps_per_sec, 4),
+            "bf16_train_mfu": bf16_mfu,
             "sample_flops_per_sampler_step": sample_flops,
             "sample_mfu": sample_mfu,
             "peak_flops": peak,

@@ -18,6 +18,13 @@ _PRESETS = {
     "tauUnet_mnist_ll": "ctdd_tpu_torch.config.presets.mnist_tau_unet_ll",
     "tauUnet_maze": "ctdd_tpu_torch.config.presets.maze_tau_unet",
     "mlp_synthetic": "ctdd_tpu_torch.config.presets.synthetic_mlp",
+    "hollow_synthetic": "ctdd_tpu_torch.config.presets.synthetic_hollow",
+    "hollow_synthetic_rmdirect": "ctdd_tpu_torch.config.presets.synthetic_hollow_rmdirect",
+    "bert_synthetic": "ctdd_tpu_torch.config.presets.synthetic_bert",
+    "masked_synthetic": "ctdd_tpu_torch.config.presets.synthetic_masked",
+    "hollow_mnist": "ctdd_tpu_torch.config.presets.mnist_hollow",
+    "holvisual_mnist": "ctdd_tpu_torch.config.presets.mnist_hollow_crm",
+    "bert_mnist": "ctdd_tpu_torch.config.presets.mnist_bert",
 }
 
 

@@ -1,5 +1,6 @@
 """Carry flax weights across into the port's state dicts: the UNet
-(`unet_params_from_flax`), the residual MLP (`mlp_params_from_flax`), the FID
+(`unet_params_from_flax`), the residual MLP (`mlp_params_from_flax`), the
+hollow family (`hollow_params_from_flax`), the FID
 feature nets (`inception_params_from_flax`, `lenet_params_from_flax`,
 `classifier_params_from_flax`); and a whole JAX train state of the UNet
 (`train_state_from_flax`).
@@ -18,6 +19,11 @@ The residual MLP's Dense layers are numbered in the order of
 `ResidualMLP.__call__`: Dense_0 the input layer, then per layer i
 Dense_{3i+1} (FF in), Dense_{3i+2} (FF out), Dense_{3i+3} (FiLM), and last
 the output layer.
+
+The hollow family's modules carry flax's own names, so a flax path is a
+port module path; flax's MultiHeadDotProductAttention stores query, key and
+value kernels as (E, H, Dh) and the output kernel as (H, Dh, E), each
+flattened to a Linear weight.
 """
 
 from __future__ import annotations
@@ -56,17 +62,23 @@ _LISTS = {
 def _leaf(kind: str, leaf: str, a: np.ndarray):
     if kind == "norm":
         return {"scale": "weight", "bias": "bias"}[leaf], a
+    if kind == "embed":
+        return {"embedding": "weight"}[leaf], a
     if kind == "bn":
         return {"scale": "weight", "bias": "bias", "mean": "running_mean",
                 "var": "running_var"}[leaf], a
     if leaf == "bias":
-        return "bias", a
+        return "bias", a.reshape(-1)
     if leaf != "kernel":
         raise KeyError(leaf)
     if kind == "conv":
         return "weight", a.transpose(3, 2, 0, 1)
     if kind == "dense":
         return "weight", a.T
+    if kind == "dense_qkv":  # (E, H, Dh) -> (H * Dh, E)
+        return "weight", a.reshape(a.shape[0], -1).T
+    if kind == "dense_out":  # (H, Dh, E) -> (E, H * Dh)
+        return "weight", a.reshape(-1, a.shape[-1]).T
     if kind == "dense_1x1":
         return "weight", a.T[:, :, None, None]
     raise KeyError(kind)
@@ -164,6 +176,35 @@ def mlp_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
             raise bad
         layer, part = divmod(idx - 1, 3)
         return f"{('ff_in', 'ff_out', 'films')[part]}.{layer}", "dense", path[1]
+
+    return _state_dict_from_flax(tree, net, port_name)
+
+
+def hollow_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax params of a hollow-family wrapper (`HollowTransformerWrapper`,
+    `HollowLogisticsWrapper`, `EnumerativeTransformerWrapper`,
+    `BertEnumTransformerWrapper`) -> the state dict of the port's `net` of
+    the same config. Raises on a leaf that is missing, left over or of the
+    wrong shape."""
+    import torch.nn as nn
+
+    def port_name(path: tuple):
+        module = ".".join(path[:-1])
+        try:
+            mod = net.get_submodule(module)
+        except AttributeError:
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}") from None
+        if isinstance(mod, nn.Linear):
+            kind = "dense"
+            if len(path) >= 3 and "MultiHeadDotProductAttention" in path[-3]:
+                kind = "dense_out" if path[-2] == "out" else "dense_qkv"
+        elif isinstance(mod, nn.LayerNorm):
+            kind = "norm"
+        elif isinstance(mod, nn.Embedding):
+            kind = "embed"
+        else:
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        return module, kind, path[-1]
 
     return _state_dict_from_flax(tree, net, port_name)
 

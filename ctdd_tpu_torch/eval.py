@@ -52,15 +52,15 @@ def _checkpoint_path(ckpt: str, step) -> str:
 def _refuse_unported(args, cfg):
     if args.metric == "cond_mmd":
         raise NotImplementedError(
-            "--metric cond_mmd needs the conditional samplers (ROADMAP queue A "
-            "item 9), ported in a later slice")
+            "--metric cond_mmd needs the conditional samplers (ROADMAP queue A, "
+            "the conditional path), ported in a later slice")
     if args.label is not None or args.cfg_scale:
         raise NotImplementedError(
             "--label/--cfg-scale need a label-conditional model (DiT, ROADMAP "
-            "queue A item 11), ported in a later slice")
+            "queue A, the other image networks), ported in a later slice")
     if cfg.loss.name == "d3pm":
         raise NotImplementedError(
-            "D3PM checkpoints need the D3PM port (ROADMAP queue A item 12), "
+            "D3PM checkpoints need the D3PM port (ROADMAP queue A, D3PM), "
             "ported in a later slice")
 
 

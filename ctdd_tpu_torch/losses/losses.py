@@ -1,11 +1,14 @@
-"""Training losses of the tauLDR main path: CTElbo and NLLOriginal.
+"""Training losses: the tauLDR family (CTElbo, NLL, CTElboLambda,
+NLLOriginal), the SDDM ELBOs (SDDMElbo, ScoreElbo) and categorical ratio
+matching (CatRM, CatRMNLL).
 
 Counterpart of those losses in ctdd_tpu/losses/losses.py. Each is a
 function of (model, params, generator, batch): the generator draws the
 times, x_t and x̃ where JAX splits a key, and dropout draws from the
-device's default generator (the train step seeds it). The two
-(B, D, S) x (B, S, S) products are `torch.einsum`, as the JAX package keeps
-them outside any Pallas kernel. The other losses are ported in a later slice.
+device's default generator (the train step seeds it). The (B, D, S) x
+(B, S, S) products are `torch.einsum`, as the JAX package keeps them
+outside any Pallas kernel. The conditional (CondCTElbo, CondNLL) and EBM
+losses are ported with their networks in a later slice.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import torch
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing
-from ctdd_tpu_torch.utils.math import categorical, mean_cross_entropy, safe_log
+from ctdd_tpu_torch.ops.logprob import logprob_with_logits
+from ctdd_tpu_torch.utils.math import (
+    categorical, log1mexp, mean_cross_entropy, safe_log,
+)
 
 
 def get_loss(cfg):
@@ -141,7 +147,8 @@ def _no_label(loss, label):
     if label is not None:
         raise NotImplementedError(
             f"{type(loss).__name__} with labels: label-conditional networks "
-            "(DiT) are ported in a later slice"
+            "(DiT, ROADMAP queue A, the other image networks) are ported in a "
+            "later slice"
         )
 
 
@@ -186,3 +193,208 @@ class NLLOriginal:
         xt = sample_xt(generator, model.transition(ts), x0)
         logits = model.apply(params, xt, ts, train=train)
         return mean_cross_entropy(logits, x0)
+
+
+@registry.losses.register
+class NLL:
+    """The CE term of the CTElbo pipeline: x_t and x̃ drawn as CTElbo draws
+    them, the network on x_t; the ELBO arithmetic, which JAX also skips, is
+    left out."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+        self.max_t = cfg.training.max_t
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
+        x_t, _ = sample_xt_xtilde(generator, model.transition(ts), model.rate(ts), x0)
+        return mean_cross_entropy(model.apply(params, x_t, ts, train=train), x0)
+
+
+@registry.losses.register
+class CTElboLambda:
+    """Iteration-annealed mix w·neg_elbo + (1-w)·CE, w = n_iter/n_iters."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.ratio_eps = cfg.loss.eps_ratio
+        self.min_time = cfg.loss.min_time
+        self.one_forward_pass = cfg.loss.one_forward_pass
+        self.max_t = cfg.training.max_t
+        self.n_iters = cfg.training.n_iters
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
+        neg_elbo, x_logits = _ctelbo_terms(
+            model, params, generator, x0, ts, self.ratio_eps,
+            self.one_forward_pass, train,
+        )
+        w = n_iter / self.n_iters
+        return w * neg_elbo + (1.0 - w) * mean_cross_entropy(x_logits, x0)
+
+
+# ---------------------------------------------------------------------------
+# SDDM-style ELBO (backward ratios from logprob_with_logits)
+# ---------------------------------------------------------------------------
+
+
+def _sddm_elbo_terms(cfg, model, params, generator, x0, ts, eps, one_forward_pass,
+                     train, samples=None):
+    """(neg_elbo, logits, ll_all, ll_xt); `samples` optionally injects
+    (x_t, x̃), else they are drawn from `generator`."""
+    qt0 = model.transition(ts)
+    rate = model.rate(ts)
+    S = qt0.shape[-1]
+    if samples is None:
+        x_t, x_tilde = sample_xt_xtilde(generator, qt0, rate, x0)
+    else:
+        x_t, x_tilde = samples
+
+    reg_x = x_tilde if one_forward_pass else x_t
+    logits_reg = model.apply(params, reg_x, ts, train=train)
+    reg_tmp = indexing.onehot_mask(reg_x, S) * indexing.cols(rate, reg_x)
+
+    ll_all, ll_xt = logprob_with_logits(cfg.loss.logit_type, model, x_tilde, ts,
+                                        logits_reg)
+    inner_log_sig = ll_all - ll_xt[..., None]
+    reg_term = torch.sum(torch.exp(inner_log_sig) * reg_tmp, dim=(1, 2))
+
+    x_tilde_mask = indexing.onehot_mask(x_tilde, S)
+    outer_rate_sig = indexing.cols(rate, x_tilde)
+    outer_qt0_numer_sig = indexing.rows(qt0, x0)
+    outer_qt0_denom_sig = indexing.elems(qt0, x0, x_tilde) + eps
+    outer_sum_sig = torch.sum(
+        x_tilde_mask
+        * outer_rate_sig
+        * (outer_qt0_numer_sig / outer_qt0_denom_sig[:, :, None])
+        * inner_log_sig,
+        dim=(1, 2),
+    )
+    rate_row_sums = -indexing.diag(rate)
+    base_Z_tmp = torch.gather(rate_row_sums, 1, x_tilde.long())
+    base_Z = base_Z_tmp.sum(1)
+    Z_sig_norm = (
+        base_Z[:, None, None] - base_Z_tmp[:, :, None] + rate_row_sums[:, None, :]
+    )
+    sig_norm = torch.sum(
+        (outer_rate_sig * x_tilde_mask * outer_qt0_numer_sig)
+        / (Z_sig_norm * outer_qt0_denom_sig[:, :, None]),
+        dim=(1, 2),
+    )
+    neg_elbo = torch.mean(-outer_sum_sig / sig_norm) + torch.mean(reg_term)
+    return neg_elbo, logits_reg, ll_all, ll_xt
+
+
+class _SDDMBase:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.ratio_eps = cfg.loss.eps_ratio
+        self.nll_weight = cfg.loss.nll_weight
+        self.min_time = cfg.loss.min_time
+        self.one_forward_pass = cfg.loss.one_forward_pass
+
+    def _terms(self, model, params, generator, minibatch, label, train):
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts = _sample_ts(generator, x0.shape[0], self.min_time, 1.0, clamp_hi=0.99999)
+        return x0, _sddm_elbo_terms(self.cfg, model, params, generator, x0, ts,
+                                    self.ratio_eps, self.one_forward_pass, train)
+
+
+@registry.losses.register
+class SDDMElbo(_SDDMBase):
+    """CT-ELBO with SDDM backward ratios + nll_weight·CE."""
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        x0, (neg_elbo, logits, _, _) = self._terms(model, params, generator, minibatch,
+                                                   label, train)
+        return neg_elbo + self.nll_weight * mean_cross_entropy(logits, x0)
+
+
+@registry.losses.register
+class ScoreElbo(_SDDMBase):
+    """SDDMElbo + nll_weight · the ratio-matching aux, -Σ ll_xt / B."""
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        x0, (neg_elbo, _, _, ll_xt) = self._terms(model, params, generator, minibatch,
+                                                  label, train)
+        return neg_elbo + self.nll_weight * torch.sum(-ll_xt) / x0.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Categorical ratio matching family
+# ---------------------------------------------------------------------------
+
+
+def _catrm_comp_loss(cfg, model, xt, t, ll_all, ll_xt):
+    """Per-dimension loss of the rm / mle / elbo variants, (B, D)."""
+    S = cfg.data.S
+    loss_type = cfg.loss.loss_type
+    if loss_type == "rm":
+        return -ll_xt
+    if loss_type == "mle":
+        return -((S - 1) * ll_xt + torch.sum(log1mexp(ll_all), dim=-1) - log1mexp(ll_xt))
+    if loss_type == "elbo":
+        not_xt = indexing.onehot_mask(xt, S)
+        qt0_x2y = model.transition(t)  # (B, S, S)
+        ll_xt_e = ll_xt[..., None]
+        backwd = torch.exp(ll_all - ll_xt_e) * indexing.cols(qt0_x2y, xt)
+        fwd = (ll_xt_e - ll_all) * indexing.rows(qt0_x2y, xt)
+        return torch.sum(backwd * not_xt, dim=-1) - torch.sum(fwd * not_xt, dim=-1)
+    raise ValueError(f"unknown loss_type {loss_type}")
+
+
+class _CatRMBase:
+    def __init__(self, cfg, max_t: float, clamp_hi: Optional[float]):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+        self.max_t, self.clamp_hi = max_t, clamp_hi
+
+    def _terms(self, model, params, generator, minibatch, label, train):
+        """(x0, logits, the summed ratio-matching loss over B)."""
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        B = x0.shape[0]
+        ts = _sample_ts(generator, B, self.min_time, self.max_t, clamp_hi=self.clamp_hi)
+        xt = sample_xt(generator, model.transition(ts), x0)
+        logits = model.apply(params, xt, ts, train=train)
+        ll_all, ll_xt = logprob_with_logits(self.cfg.loss.logit_type, model, xt, ts,
+                                            logits)
+        loss = _catrm_comp_loss(self.cfg, model, xt, ts, ll_all, ll_xt)
+        return x0, logits, torch.sum(loss * (1.0 - self.cfg.loss.ce_coeff)) / B
+
+
+@registry.losses.register
+class CatRM(_CatRMBase):
+    """SDDM categorical ratio matching (times in [min_time, 1), clamped
+    below 1)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, max_t=1.0, clamp_hi=0.99999)
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        return self._terms(model, params, generator, minibatch, label, train)[2]
+
+
+@registry.losses.register
+class CatRMNLL(_CatRMBase):
+    """CatRM (times up to training.max_t, unclamped) + nll_weight·CE."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, max_t=cfg.training.max_t, clamp_hi=None)
+        self.nll_weight = cfg.loss.nll_weight
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        x0, logits, rm = self._terms(model, params, generator, minibatch, label, train)
+        return rm + self.nll_weight * mean_cross_entropy(logits, x0)

@@ -1,7 +1,8 @@
 """The registered model zoo: network wrapper x forward process.
 
 Counterpart of ctdd_tpu/models/zoo.py, for the entries built on the UNet
-wrapper (`_unet_paul`) and on the residual MLP (`_residual_mlp`). Registered
+wrapper (`_unet_paul`), the residual MLP (`_residual_mlp`) and the hollow
+family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`). Registered
 names match the JAX zoo so its configs resolve unchanged.
 """
 
@@ -28,6 +29,30 @@ def _residual_mlp(cfg):
     )
 
 
+def _hollow(cfg):
+    from ctdd_tpu_torch.networks.hollow import HollowTransformerWrapper
+
+    return HollowTransformerWrapper(cfg)
+
+
+def _hollow_logistics(cfg):
+    from ctdd_tpu_torch.networks.hollow import HollowLogisticsWrapper
+
+    return HollowLogisticsWrapper(cfg)
+
+
+def _masked(cfg):
+    from ctdd_tpu_torch.networks.hollow import EnumerativeTransformerWrapper
+
+    return EnumerativeTransformerWrapper(cfg)
+
+
+def _bert_enum(cfg):
+    from ctdd_tpu_torch.networks.hollow import BertEnumTransformerWrapper
+
+    return BertEnumTransformerWrapper(cfg)
+
+
 _ZOO = {
     # name                                   (network, process)
     "UniformRateImageX0PredEMA":              (_unet_paul, "UniformRate"),
@@ -36,6 +61,15 @@ _ZOO = {
     "UniVarUnetEMA":                          (_unet_paul, "UniformVariantRate"),
     "GaussianRateResidualMLP":                (_residual_mlp, "GaussianTargetRate"),
     "UniformRateResMLP":                      (_residual_mlp, "UniformRate"),
+    "UniVarHollowEMA":                        (_hollow, "UniformVariantRate"),
+    "UniVarHollowEMALogistics":               (_hollow_logistics, "UniformVariantRate"),
+    "UniformMaskedEMA":                       (_masked, "UniformRate"),
+    "UniVarMaskedEMA":                        (_masked, "UniformVariantRate"),
+    "UniformHollowEMA":                       (_hollow, "UniformRate"),
+    "GaussianHollowEMA":                      (_hollow, "GaussianTargetRate"),
+    "UniVarBertEMA":                          (_bert_enum, "UniformVariantRate"),
+    "UniformBertEMA":                         (_bert_enum, "UniformRate"),
+    "UniformBDTEMA":                          (_hollow, "UniformRate"),
 }
 
 

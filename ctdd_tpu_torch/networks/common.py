@@ -1,13 +1,15 @@
-"""Shared network building blocks: the time-embedding MLP and state scaling.
+"""Shared network building blocks: the time-embedding MLP, FiLM, the
+positional table and state scaling.
 
-Counterpart of the pieces of ctdd_tpu/networks/common.py that the residual
-MLP uses, and flax's default initializers (`lecun_normal_`, `flax_init_`).
+Counterpart of ctdd_tpu/networks/common.py, and flax's default initializers
+(`lecun_normal_`, `xavier_uniform_`, `flax_init_`).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -30,6 +32,14 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     draw = torch.empty(w.shape, dtype=torch.float32)
     nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     return w.copy_(draw)
+
+
+@torch.no_grad()
+def xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's `xavier_uniform` of a Linear weight (out, in), drawn on the CPU
+    from `generator` whatever `w`'s device."""
+    limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+    return w.copy_((torch.rand(w.shape, generator=generator) * 2.0 - 1.0) * limit)
 
 
 @torch.no_grad()
@@ -69,3 +79,37 @@ class TimeEmbedMLP(nn.Module):
 def normalize_states(x: torch.Tensor, S: int) -> torch.Tensor:
     """states [0, S-1] -> [-1, 1]."""
     return (x.float() / (S - 1)) * 2.0 - 1.0
+
+
+def film(x: torch.Tensor, params: torch.Tensor, d: int) -> torch.Tensor:
+    """FiLM: scale/shift a (B, ..., d) tensor with (B, 2d) params, broadcast
+    over the middle axes."""
+    shape = (params.shape[0],) + (1,) * (x.dim() - 2) + (d,)
+    return params[:, :d].reshape(shape) * x + params[:, d:].reshape(shape)
+
+
+def positional_table(max_len: int, d_model: int) -> torch.Tensor:
+    """The fixed sin/cos positional table (max_len, d_model), interleaved:
+    even columns sin, odd columns cos (numpy float64, cast to float32 as
+    the JAX module does)."""
+    position = np.arange(max_len)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2) * (-np.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return torch.from_numpy(pe)
+
+
+class PositionalEncoding(nn.Module):
+    """x + the positional table's first x.shape[1] rows. The table is a
+    buffer (moved with the module, not in the state dict)."""
+
+    def __init__(self, d_model: int, max_len: int):
+        super().__init__()
+        self.register_buffer("pe", positional_table(max_len, d_model), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        L = x.shape[1]
+        if L > self.pe.shape[0]:
+            raise ValueError(f"{L} positions, table of {self.pe.shape[0]}")
+        return x + self.pe[None, :L, :].to(x.dtype)

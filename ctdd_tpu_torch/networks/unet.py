@@ -2,8 +2,16 @@
 
 Counterpart of ctdd_tpu/networks/unet.py: GroupNorm ResBlocks with additive
 time injection, QKV self-attention at configured resolutions, nearest-2x
-upsampling, and a logits head. The public interface is the JAX package's:
-(B, D) int states -> (B, D, S) logits.
+upsampling, and a logits or truncated-logistic head. The public interface is
+the JAX package's: (B, D) int states -> (B, D, S) logits.
+
+`model.compute_dtype="bfloat16"` mirrors flax's per-module dtype: every
+convolution, Dense layer and the attention's projections cast their inputs
+and weights to bf16 (the weights stay float32, so gradients and Adam do);
+GroupNorm upcasts to float32, the attention's products and softmax run in
+float32, and the head casts to float32 before its GroupNorm. Otherwise the
+network computes in its weights' dtype (float32, or float64 for a
+reference).
 
 Submodules are kept in flat lists in the order the JAX module creates them
 (`res_blocks[i]` is flax's `ResBlock_i`, `attns[j]` is `SelfAttention_j`, and
@@ -20,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ctdd_tpu_torch.ops.logistic import logistic_bin_logits
 from ctdd_tpu_torch.ops.timestep import center_data
 
 GN_EPS = 1e-6  # flax.linen.GroupNorm's epsilon (PyTorch's default is 1e-5)
@@ -37,6 +46,21 @@ def _vs_uniform_(w: torch.Tensor, generator: torch.Generator, scale: float = 1.0
     fan_avg = (w.shape[0] + w.shape[1]) * field / 2
     limit = math.sqrt(3.0 * scale / fan_avg)
     w.copy_((torch.rand(w.shape, generator=generator) * 2.0 - 1.0) * limit)
+
+
+def _linear(m: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """flax Dense(dtype=dt): input and weights cast to dt."""
+    return F.linear(x.to(dt), m.weight.to(dt), m.bias.to(dt))
+
+
+def _conv(m: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """flax Conv(dtype=dt): input and weights cast to dt."""
+    return m._conv_forward(x.to(dt), m.weight.to(dt), m.bias.to(dt))
+
+
+def _norm(m: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax GroupNorm without a dtype: the result in the weights' dtype."""
+    return m(x.to(m.weight.dtype))
 
 
 def _conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
@@ -75,13 +99,13 @@ class ResBlock(nn.Module):
         # flax's Dense over channels: a 1x1 conv in NCHW
         self.skip = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv_0(F.silu(self.norm_0(x)))
-        h = h + self.dense_0(F.silu(temb))[:, :, None, None]
-        h = self.dropout(F.silu(self.norm_1(h)))
-        h = self.conv_1(h)
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        h = _conv(self.conv_0, F.silu(_norm(self.norm_0, x)), dt)
+        h = h + _linear(self.dense_0, F.silu(temb), dt)[:, :, None, None]
+        h = self.dropout(F.silu(_norm(self.norm_1, h)))
+        h = _conv(self.conv_1, h, dt)
         if self.skip is not None:
-            x = self.skip(x)
+            x = _conv(self.skip, x, dt)
         return h + x
 
 
@@ -89,7 +113,10 @@ class SelfAttention(nn.Module):
     """Spatial QKV attention with an output projection.
 
     The qkv projection is split per head as [q_h | k_h | v_h] (the JAX
-    layout), and both q and k are scaled by ch**-0.25."""
+    layout), and both q and k are scaled by ch**-0.25. The products and the
+    softmax run in the GroupNorm's dtype (float32 under bf16 compute: the
+    products of bf16 values are exact there, as in JAX's
+    preferred_element_type=float32)."""
 
     def __init__(self, ch: int, n_head: int = 1):
         super().__init__()
@@ -98,17 +125,18 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(ch, 3 * ch)
         self.proj = nn.Linear(ch, ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         B, C, H, W = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
-        qkv = self.qkv(h).reshape(B, H * W, self.n_head, 3 * (C // self.n_head))
+        h = _norm(self.norm, x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        acc = h.dtype
+        qkv = _linear(self.qkv, h, dt).reshape(B, H * W, self.n_head, 3 * (C // self.n_head))
         q, k, v = qkv.chunk(3, dim=-1)
         scale = 1.0 / math.sqrt(math.sqrt(C // self.n_head))
-        w = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
+        w = torch.einsum("bthc,bshc->bhts", (q * scale).to(acc), (k * scale).to(acc))
         w = torch.softmax(w, dim=-1)
-        out = torch.einsum("bhts,bshc->bthc", w, v).reshape(B, H * W, C)
-        out = self.proj(out)
-        return x + out.reshape(B, H, W, C).permute(0, 3, 1, 2)
+        out = torch.einsum("bhts,bshc->bthc", w, v.to(acc)).reshape(B, H * W, C)
+        out = _linear(self.proj, out, dt)
+        return x + out.reshape(B, H, W, C).permute(0, 3, 1, 2).to(x.dtype)
 
 
 class Downsample(nn.Module):
@@ -118,8 +146,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.conv = _conv3x3(ch, ch, stride=2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        return _conv(self.conv, F.pad(x, (0, 1, 0, 1)), dt)
 
 
 class Upsample(nn.Module):
@@ -129,26 +157,26 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = _conv3x3(ch, ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        return _conv(self.conv, F.interpolate(x, scale_factor=2, mode="nearest"), dt)
 
 
 class UNet(nn.Module):
-    """(B, C_in, H, W) image + (B,) t -> logits (B, C, H, W, S)."""
+    """(B, C_in, H, W) image + (B,) t -> logits (B, C, H, W, S), or the
+    logistic head's (loc, log_scale), each (B, C, H, W)."""
 
     def __init__(
         self, in_channel: int, out_channel: int, channel: int,
         channel_multiplier: Sequence[int], n_res_blocks: int,
         attn_resolutions: Sequence[int], num_heads: int, dropout: float,
         model_output: str, num_classes: int, x_min_max: Sequence[float],
-        img_size: int,
+        img_size: int, bf16: bool = False,
     ):
         super().__init__()
-        if model_output != "logits":
-            raise NotImplementedError(
-                f"model_output={model_output!r}: the logistic head (maze, "
-                "CIFAR) is ported in a later slice"
-            )
+        if model_output not in ("logits", "logistic_pars"):
+            raise ValueError(f"unknown model_output {model_output!r}")
+        self.model_output = model_output
+        self.bf16 = bf16
         self.out_channel = out_channel
         self.num_classes = num_classes
         self.x_min_max = tuple(x_min_max)
@@ -197,7 +225,8 @@ class UNet(nn.Module):
         self.downs = nn.ModuleList(downs)
         self.ups = nn.ModuleList(ups)
         self.norm_out = _group_norm(ch)
-        self.conv_1 = _conv3x3(ch, out_channel * num_classes)
+        head = 2 if model_output == "logistic_pars" else num_classes
+        self.conv_1 = _conv3x3(ch, out_channel * head)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -218,40 +247,46 @@ class UNet(nn.Module):
         for attn in self.attns:
             attn.proj.weight.zero_()
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        # the weights' dtype (float64 for a reference; no-ops in float32)
-        dtype = self.conv_0.weight.dtype
-        temb = self.temb(t).to(dtype)
-        temb = self.dense_1(F.silu(self.dense_0(temb)))
+    def forward(self, x: torch.Tensor, t: torch.Tensor):
+        # the weights' dtype (float64 for a reference), and the compute dtype
+        wdt = self.conv_0.weight.dtype
+        dt = torch.bfloat16 if self.bf16 else wdt
+        temb = _linear(self.dense_0, self.temb(t).to(wdt), dt)
+        temb = _linear(self.dense_1, F.silu(temb), dt)
         res, attns = iter(self.res_blocks), iter(self.attns)
         downs, ups = iter(self.downs), iter(self.ups)
 
-        hid = self.conv_0(center_data(x, self.x_min_max).to(dtype))
+        inp = center_data(x, self.x_min_max).to(wdt)
+        hid = _conv(self.conv_0, inp, dt)
         feats = [hid]
         n_block = len(self.channel_multiplier)
         for i in range(n_block):
             for _ in range(self.n_res_blocks):
-                hid = next(res)(hid, temb)
+                hid = next(res)(hid, temb, dt)
                 if self.level_attn[i]:
-                    hid = next(attns)(hid)
+                    hid = next(attns)(hid, dt)
                 feats.append(hid)
             if i != n_block - 1:
-                hid = next(downs)(hid)
+                hid = next(downs)(hid, dt)
                 feats.append(hid)
 
-        hid = next(res)(hid, temb)
-        hid = next(attns)(hid)
-        hid = next(res)(hid, temb)
+        hid = next(res)(hid, temb, dt)
+        hid = next(attns)(hid, dt)
+        hid = next(res)(hid, temb, dt)
 
         for i in reversed(range(n_block)):
             for _ in range(self.n_res_blocks + 1):
-                hid = next(res)(torch.cat([hid, feats.pop()], dim=1), temb)
+                hid = next(res)(torch.cat([hid, feats.pop()], dim=1), temb, dt)
                 if self.level_attn[i]:
-                    hid = next(attns)(hid)
+                    hid = next(attns)(hid, dt)
             if i != 0:
-                hid = next(ups)(hid)
+                hid = next(ups)(hid, dt)
 
-        out = self.conv_1(F.silu(self.norm_out(hid)))  # (B, C*S, H, W)
+        # the head in the weights' dtype, as JAX casts to float32 before it
+        out = self.conv_1(F.silu(self.norm_out(hid.to(wdt))))  # (B, C*S, H, W)
+        if self.model_output == "logistic_pars":
+            loc, log_scale = out.chunk(2, dim=1)
+            return torch.tanh(loc + inp), log_scale
         B, _, H, W = out.shape
         # channel index c*S + s -> (B, C, S, H, W) -> (B, C, H, W, S)
         out = out.reshape(B, self.out_channel, self.num_classes, H, W)
@@ -263,11 +298,12 @@ class UNetWrapper(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.model.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                "model.compute_dtype other than float32 is ported in a later slice"
-            )
+        compute_dtype = cfg.model.get("compute_dtype", "float32")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown model.compute_dtype {compute_dtype!r}")
         self.S = cfg.data.S
+        self.model_output = cfg.model.model_output
+        self.fix_logistic = bool(cfg.model.get("fix_logistic", False))
         self.shape = tuple(cfg.data.shape)
         self.padding = bool(cfg.model.get("padding", False))
         img_size = cfg.data.image_size + (1 if self.padding else 0)
@@ -284,6 +320,7 @@ class UNetWrapper(nn.Module):
             num_classes=self.S,
             x_min_max=tuple(cfg.model.data_min_max),
             img_size=img_size,
+            bf16=compute_dtype == "bfloat16",
         )
 
     def init_weights(self, generator: torch.Generator):
@@ -297,7 +334,11 @@ class UNetWrapper(nn.Module):
         img = x.reshape(B, C, H, W).float()
         if self.padding:
             img = F.pad(img, (0, 1, 0, 1), mode="replicate")
-        logits = self.unet(img, t)  # (B, C, H', W', S)
+        out = self.unet(img, t)
+        if self.model_output == "logits":
+            logits = out  # (B, C, H', W', S)
+        else:
+            logits = logistic_bin_logits(*out, self.S, self.fix_logistic)
         if self.padding:
             logits = logits[:, :, :-1, :-1, :]
         # the head's permute leaves a strided view; the fused kernel takes

@@ -14,13 +14,25 @@ import torch.nn.functional as F
 def timestep_embedding(
     timesteps: torch.Tensor, dim: int, max_positions: int = 10000
 ) -> torch.Tensor:
-    """(B,) -> (B, dim) sinusoidal embedding, [sin, cos] concat order."""
+    """(B,) -> (B, dim) sinusoidal embedding, [sin, cos] concat order, in
+    float32 as JAX computes it; float64 times give a float64 embedding (a
+    float64 reference).
+
+    At the time scale of 1000 (the MLP and the hollow family) the arguments
+    reach ~1000 rad, so one ulp of a frequency moves the embedding by ~1e-4.
+    The float32 frequencies are therefore the correctly rounded exp of the
+    float32 exponents (exp taken in float64), the same table on every
+    device; a device's float32 exp (and JAX's) may sit an ulp away."""
     half = dim // 2
-    freqs = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=timesteps.device)
-        * (-math.log(max_positions) / (half - 1))
-    )
-    args = timesteps.float()[:, None] * freqs[None, :]
+    c = -math.log(max_positions) / (half - 1)
+    if timesteps.dtype == torch.float64:
+        dtype = torch.float64
+        freqs = torch.exp(torch.arange(half, dtype=dtype, device=timesteps.device) * c)
+    else:
+        dtype = torch.float32
+        exponents = torch.arange(half, dtype=dtype, device=timesteps.device) * c
+        freqs = torch.exp(exponents.double()).float()
+    args = timesteps.to(dtype)[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))

@@ -1,4 +1,4 @@
-"""Reverse-CTMC samplers on the p0t path: TauL, LBJF, MidPointTauL.
+"""Reverse-CTMC samplers: TauL, LBJF, MidPointTauL.
 
 Counterpart of those samplers in ctdd_tpu/sampling/samplers.py, correctors
 included. The JAX package scans a compiled step over a precomputed time
@@ -10,6 +10,10 @@ grid.
   (ops/rate_kernels.py) and Poisson jumps.
 - LBJF: reverse rates, then the Euler posterior (both ops/rate_kernels.py)
   and a Gumbel-max categorical draw.
+- The reverse rates come from the p0t formula (the tauLDR losses) through
+  the reverse-rates kernel, or from the network's log-probability ratios
+  (the SDDM/CRM losses, `rate_param="ratio"`) in plain torch; the Euler
+  posterior kernel runs on either.
 - MidPointTauL: fused, two launches of the fused kernel per step ("expected"
   over h/2, then "poisson" from the midpoint state); unfused, two
   reverse-rate passes.
@@ -28,6 +32,7 @@ import torch
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing, rate_kernels
 from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
+from ctdd_tpu_torch.ops.logprob import log_prob_from_logits, logprob_with_logits
 from ctdd_tpu_torch.utils.device import resolve_device
 from ctdd_tpu_torch.utils.math import gumbel_noise
 
@@ -71,14 +76,20 @@ def get_initial_samples(
 def reverse_rates(
     model, params, logits, x, t, *, rate_param: str, logit_type: str, eps: float,
 ):
-    """R̂_t(x -> ·) per dim with a timestep per sample, t (N,):
-    (rates, ratio), both (N, D, S). The rates come from the reverse-rates
-    kernel, so their entry at x is 0; the ratio is not masked."""
+    """R̂_t(x -> ·) per dim with a timestep per sample, t (N,): (rates,
+    ratio), both (N, D, S); the rates are 0 at x, the ratio is not masked.
+
+    p0t:   R̂(x, y) = R(y, x) · Σ_{x0} q_{t|0}(y|x0) p0t(x0|x) / q_{t|0}(x|x0),
+           through the reverse-rates kernel
+    ratio: R̂(x, y) = exp(ll_all - ll_xt) · R(x, y), in plain torch (the
+           kernel computes only the p0t formula); at x this product is the
+           negative diagonal R(x, x), so it is zeroed here"""
+    if rate_param == "ratio":
+        ll_all, ll_xt = logprob_with_logits(logit_type, model.process, x, t, logits)
+        ratio = torch.exp(ll_all - ll_xt[..., None])
+        return indexing.zero_at(ratio * model.rate_mat(x, t), x), ratio
     if rate_param != "p0t":
-        raise NotImplementedError(
-            f"rate_param={rate_param!r}: the CRM ratio path is ported with "
-            "the CRM losses in a later slice"
-        )
+        raise ValueError(f"unknown rate_param {rate_param}")
     qt0 = model.transition(t)  # (N, S, S)
     rate = model.rate(t)
     qt0_denom = indexing.cols(qt0, x) + eps  # q_{t|0}(x | x0) over x0
@@ -99,18 +110,26 @@ def _shared_mats(process, t: float):
     return process.transition(t1)[0], process.rate(t1)[0]
 
 
+def _ratio_rates_shared(qt0, rate, logits, x, logit_type: str):
+    """The ratio branch at a shared timestep: exp(ll_all - ll_xt) · R(x, ·),
+    zeroed at x (where the product is the negative diagonal R(x, x))."""
+    log_prob = log_prob_from_logits(logit_type, logits, qt0)
+    ll_xt = torch.gather(log_prob, -1, x.long()[..., None])
+    return indexing.zero_at(torch.exp(log_prob - ll_xt) * rate[x.long()], x)
+
+
 def reverse_rates_shared(
     process, logits, x, t: float, *, rate_param: str, logit_type: str,
     eps: float,
 ):
-    """Shared-timestep reverse rates R̂_t(x -> ·) per dim, (N, D, S):
-    R̂(x, y) = R(y, x) · Σ_{x0} q_{t|0}(y|x0) p0t(x0|x) / q_{t|0}(x|x0)."""
-    if rate_param != "p0t":
-        raise NotImplementedError(
-            f"rate_param={rate_param!r}: the CRM ratio path is ported with "
-            "the CRM losses in a later slice"
-        )
+    """Shared-timestep reverse rates R̂_t(x -> ·) per dim, (N, D, S).
+    p0t (unmasked, as in JAX): R̂(x, y) = R(y, x) · Σ_{x0} q_{t|0}(y|x0)
+    p0t(x0|x) / q_{t|0}(x|x0). ratio: exp(ll_all - ll_xt) · R(x, y), 0 at x."""
     qt0, rate = _shared_mats(process, t)
+    if rate_param == "ratio":
+        return _ratio_rates_shared(qt0, rate, logits, x, logit_type)
+    if rate_param != "p0t":
+        raise ValueError(f"unknown rate_param {rate_param}")
     N, D, S = logits.shape
     xl = x.long()
     p0t = torch.softmax(logits, dim=-1)
@@ -223,14 +242,9 @@ class _SamplerBase:
         return model.apply(params, x, t_ones)
 
     def _rev_rates_inputs(self, model, params, x, t: float, mats=None):
-        """The reverse-rates kernel's inputs at a shared timestep: (logits,
-        qt0_denom, qt0, forward_rates). `mats` takes the (qt0, rate) tables
-        at t where the caller has them already."""
-        if self.rate_param != "p0t":
-            raise NotImplementedError(
-                f"rate_param={self.rate_param!r}: the CRM ratio path is "
-                "ported with the CRM losses in a later slice"
-            )
+        """The reverse-rates kernel's inputs at a shared timestep on the p0t
+        path: (logits, qt0_denom, qt0, forward_rates). `mats` takes the (qt0,
+        rate) tables at t where the caller has them already."""
         logits = self._logits(model, params, x, t)
         qt0, rate = mats if mats is not None else _shared_mats(model.process, t)
         xl = x.long()
@@ -239,9 +253,14 @@ class _SamplerBase:
         return logits, qt0_denom, qt0, forward_rates
 
     def _rev_rates(self, model, params, x, t: float, mats=None):
-        """Shared-timestep reverse rates through the reverse-rates kernel,
-        (N, D, S) with the entry at x already 0 (the JAX package's
-        `_rev_rates` leaves it; every caller masks it)."""
+        """Shared-timestep reverse rates, (N, D, S) with the entry at x
+        already 0 (the JAX package's `_rev_rates` leaves it; every caller
+        masks it): on the p0t path through the reverse-rates kernel, on the
+        ratio path in plain torch."""
+        if self.rate_param == "ratio":
+            qt0, rate = mats if mats is not None else _shared_mats(model.process, t)
+            return _ratio_rates_shared(qt0, rate, self._logits(model, params, x, t), x,
+                                       self.logit_type)
         return rate_kernels.reverse_rates(
             *self._rev_rates_inputs(model, params, x, t, mats), x)
 

@@ -112,6 +112,9 @@ def train(
     else:
         batches = iterate_batches(dataset, cfg.data.batch_size,
                                   shuffle=cfg.data.get("shuffle", True), seed=seed)
+        # JAX spends the stream's first batch on model.init and trains from
+        # the second: skip it, so both packages train on the same batches
+        next(batches)
         step_fn = make_train_step(model, loss, tx, ema_decay=ema_decay)
 
     checkpoint_freq = cfg.saving.get("checkpoint_freq", 10000)

@@ -73,6 +73,19 @@ def test_the_training_and_scoring_modules_are_covered():
             "ctdd_tpu_torch.data.sudoku"} <= set(_modules())
 
 
+def test_the_hollow_slice_modules_are_covered():
+    """The rglob above reaches the hollow family's modules and presets."""
+    assert {"ctdd_tpu_torch.networks.hollow", "ctdd_tpu_torch.networks.common",
+            "ctdd_tpu_torch.ops.logprob", "ctdd_tpu_torch.ops.logistic",
+            "ctdd_tpu_torch.config.presets.synthetic_hollow",
+            "ctdd_tpu_torch.config.presets.synthetic_hollow_rmdirect",
+            "ctdd_tpu_torch.config.presets.synthetic_bert",
+            "ctdd_tpu_torch.config.presets.synthetic_masked",
+            "ctdd_tpu_torch.config.presets.mnist_hollow",
+            "ctdd_tpu_torch.config.presets.mnist_hollow_crm",
+            "ctdd_tpu_torch.config.presets.mnist_bert"} <= set(_modules())
+
+
 def test_eval_and_bench_run_as_modules_with_jax_blocked(tmp_path):
     """`-m ctdd_tpu_torch.eval` and `-m ctdd_tpu_torch.bench` end to end in a
     fresh process where importing JAX fails: an MLP checkpoint's samples,

@@ -133,9 +133,15 @@ def test_per_sample_reverse_rates_match_jax(process):
     assert np.all(got.numpy()[~off_x] == 0.0)
     np.testing.assert_allclose(got_ratio.numpy(), np.asarray(want_ratio),
                                rtol=2e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ratio"):
-        ts.reverse_rates(None, None, None, None, None, rate_param="ratio",
-                         logit_type="direct", eps=1e-9)
+    # the ratio branch (held against JAX in test_torch_logprob.py) computes
+    # on the same inputs: rates 0 at x, the ratio 1 there
+    rates, ratio = ts.reverse_rates(
+        DiffusionModel(net=None, process=tproc, cfg=None), None,
+        torch.from_numpy(logits), torch.from_numpy(x), torch.from_numpy(t),
+        rate_param="ratio", logit_type="direct", eps=1e-9,
+    )
+    assert np.all(rates.numpy()[~off_x] == 0.0) and np.all(rates.numpy() >= 0.0)
+    np.testing.assert_allclose(ratio.numpy()[~off_x], 1.0, rtol=1e-6)
 
 
 def test_reverse_rates_shared_matches_jax_and_keeps_the_entry_at_x():

@@ -276,3 +276,48 @@ def test_init_weights_follow_the_jax_initializers():
     again = UNetWrapper(tcfg)
     again.init_weights(torch.Generator().manual_seed(0))
     assert all(torch.equal(v, again.state_dict()[k]) for k, v in got.items())
+
+
+def test_host_batches_skip_the_batch_jax_spends_on_init(tmp_path, monkeypatch):
+    """With `training.device_data=False` both packages' train() draw host
+    batches from the same seeded stream, and JAX spends the first on
+    model.init: the port skips it too, so the batches trained on are the
+    same, step for step. Each package's step function is replaced by one
+    that records its batch."""
+    import ctdd_tpu.training.loop as jax_loop
+    import ctdd_tpu.training.train_step as jax_train_step
+    from ctdd_tpu.config.presets import get_preset as jax_get_preset
+    from ctdd_tpu.parallel.mesh import make_mesh
+    from ctdd_tpu.training.loop import train as jax_train
+    from ctdd_tpu_torch.training import loop as port_loop
+
+    data = str(tmp_path / "bits.npy")
+    np.save(data, np.random.default_rng(0).integers(0, 2, (40, 32)).astype(np.int32))
+    jcfg = jax_get_preset("mlp_synthetic")
+    with jcfg.unlocked():
+        jcfg.data.location, jcfg.data.batch_size = data, 8
+        jcfg.training.device_data = False
+        jcfg.model.d_model = jcfg.model.hidden_dim = jcfg.model.temb_dim = 8
+        jcfg.model.num_layers = 1
+        jcfg.sampler.sample_freq = 0
+        jcfg.save_location = str(tmp_path / "jax")
+    cfg = Config(jcfg.to_dict())
+    cfg.save_location = str(tmp_path / "port")
+    seen = {"jax": [], "port": []}
+
+    def recorder(name):
+        def make(*a, **k):
+            def step(state, batch, *rest):
+                seen[name].append(np.asarray(batch).copy())
+                return state, 0.0
+            return step
+        return make
+
+    monkeypatch.setattr(jax_train_step, "make_train_step", recorder("jax"))
+    monkeypatch.setattr(jax_loop, "make_dp_train_step", recorder("jax"))
+    monkeypatch.setattr(port_loop, "make_train_step", recorder("port"))
+    jax_train(jcfg, n_iters=3, seed=4, writer_kind="numpy", mesh=make_mesh(1))
+    train(cfg, n_iters=3, seed=4, device="cpu")
+    assert len(seen["jax"]) == len(seen["port"]) == 3
+    for a, b in zip(seen["jax"], seen["port"]):
+        np.testing.assert_array_equal(a, b)
