@@ -12,7 +12,7 @@ Phases (any fault exits non-zero; nothing is caught):
   2. build    compile every CUDA kernel of the port from csrc/, in parallel;
               count the tensor-core MMA ops in each binary
   3. kernels  fused tau-leap kernel vs its plain PyTorch version on the card,
-              S in {256, 8, 3, 2}, row counts below and across its tile
+              S in {256, 21, 9, 8, 3, 2}, row counts below and across its tile
   4. timing   kernel, plain version and bound at N=256 and N=16 (D=784,
               S=256): device time from a trace, and a back-to-back loop
   5. unet     full-width logits on the card vs the port's CPU logits, and
@@ -23,7 +23,9 @@ Phases (any fault exits non-zero; nothing is caught):
               batch of the flagship sampler with the fused update
   8. rates    reverse-rates and Euler-posterior kernels vs their plain
               versions, per-sample and shared tables, real process tables
+              (S up to 256; sudoku's S=9 and hollow_protein's S=21 too)
   9. timing   both kernels, plain versions and bounds at N=256 and N=16
+              (and at sudoku's sampling shape N=256, D=81, S=9)
               (phases 8 and 9 run straight after 4)
  10. steps    where a batch-16 LBJF step's time goes
  11. serving  three more seeded checkpoints over HTTP (no warm-up batch),
@@ -61,9 +63,24 @@ Phases (any fault exits non-zero; nothing is caught):
               Euler-posterior launches, none of the reverse rates); (d)
               hollow_synthetic (ScoreElbo) and bert_synthetic (CTElbo)
               trained 300 steps by the train CLI and scored by the eval
-              CLI's MMD (5 x 4096) with exact launch counts; (e) the
+              CLI's MMD (3 x 4096) with exact launch counts; (e) the
               flagship's bf16 logits vs float32 on the card, and its bf16
               train step
+ 15. maze     the maze, sudoku and protein presets at full width: (a) the
+              port's C++ generators built from csrc/datagen.cpp, the
+              presets' Maze3S (6400) and SudokuDataset (12800) pools timed
+              and held solved, regenerate(epoch) seeded; (b) sudoku and
+              protein_maze logits card vs CPU and one B=4 step each, held
+              as (12a); (c) sudoku trained 401 steps by the train CLI
+              across its async pool swap at step 400 (the pool held equal
+              to regenerate(4)), its sudoku_acc by the eval CLI (LBJF/1000:
+              exactly 1000 launches of each rate kernel); (d) tauUnet_maze
+              the same across its synchronous swap at 100, maze_acc with
+              LBJF/200; (e) hollow_maze trained 50 steps and served
+              (LBJF/750 on the ratio path), hollow_protein (S=21) trained
+              50 steps and sampled (LBJF/100), four more presets 5 steps
+              each; (f) two train() runs of the flagship bit-identical
+              (sudoku and hollow_maze reported)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -195,7 +212,8 @@ def phase_kernels(dev) -> float:
     # the serving shape, rows ragged against the kernel's 96-row tile, fewer
     # rows than one warp's 16, and the small state spaces (maze S=3, S=2)
     cases = [(16, 784, 256), (3, 77, 256), (16, 64, 8), (3, 77, 8),
-             (1, 5, 256), (1, 5, 8), (16, 225, 3), (1, 5, 3), (5, 32, 2)]
+             (1, 5, 256), (1, 5, 8), (16, 225, 3), (1, 5, 3), (5, 32, 2),
+             (16, 81, 9), (3, 81, 9), (16, 48, 21), (3, 48, 21)]
     flipped = 0.0
     for N, D, S in cases:
         for step, h_scale in ((100, 1.0), (500, 1.0), (500, 30.0), (950, 1.0)):
@@ -307,6 +325,11 @@ def rate_process(S, dev):
     if S == 3:  # tauUnet_maze
         return (fp.make_uniform_variant(3, 2.0, "log_sqr", device=dev),
                 _time_grid(1.0, 0.001, 200))
+    if S == 9:  # sudoku
+        return (fp.make_uniform_variant(9, 0.35, "sqrt_cos", device=dev),
+                _time_grid(0.99, 0.001, 1000))
+    if S == 21:  # hollow_protein
+        return fp.make_uniform(21, 0.33, device=dev), _time_grid(0.99999, 0.01, 100)
     if S == 2:  # mlp_synthetic
         return fp.make_uniform(2, 2.0, device=dev), _time_grid(0.99999, 0.007, 100)
     return (fp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0, device=dev),
@@ -351,7 +374,8 @@ def phase_rate_kernels(dev) -> dict:
     held in probability only."""
     worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
     for N, D, S in [(16, 784, 256), (3, 77, 256), (16, 225, 3), (5, 32, 2), (3, 77, 8),
-                    (2, 129, 256), (1, 5, 256), (2, 129, 12)]:
+                    (2, 129, 256), (1, 5, 256), (2, 129, 12), (16, 81, 9), (3, 81, 9),
+                    (16, 48, 21), (3, 48, 21)]:
         for per_sample, fracs in ((True, (0.1, 0.5, 0.95)), (False, (0.1,)),
                                   (False, (0.5,)), (False, (0.95,))):
             logits, qc, qt0, rc, x, h = rate_inputs(
@@ -422,10 +446,12 @@ def phase_rate_timing(dev) -> dict:
     from ctdd_tpu_torch.ops import rate_kernels as rk
 
     out = {"reverse_rates": {}, "euler_posterior": {}}
-    D, S = 784, 256
-    for N in (256, 16):
+    # the flagship's shapes, and sudoku's sampling shape (the eval's 256
+    # boards, S=9), keyed "sudoku"
+    for key, (N, D, S) in ((256, (256, 784, 256)), (16, (16, 784, 256)),
+                           ("sudoku", (256, 81, 9))):
         logits, qc, qt0, rc, x, h = rate_inputs(N, D, S, (0.5,), 1, dev, False)
-        iters = 20 if N == 256 else 200
+        iters = 20 if N * D * S > 10**6 else 200
         rev = rk.reverse_rates(logits, qc, qt0, rc, x)
         nds = logits.numel()
         cases = {
@@ -447,15 +473,15 @@ def phase_rate_timing(dev) -> dict:
             t = timed(kernel, plain, iters)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / rate * 1e3
-            out[name][N] = dict(
+            out[name][key] = dict(
                 **t, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, shape=[N, D, S])
             log(f"  {name} N={N} D={D} S={S}: kernel {t['ms']:.4f} ms by "
                 f"{t['timed_by']} ({t['loop_ms']:.4f} ms per turn of a loop), plain "
-                f"{t['plain_ms']:.4f} ms, bound {out[name][N]['bound_ms'] * 1e3:.1f} us "
-                f"({out[name][N]['bound_by']}: {nbytes / 1e6:.1f} MB, "
-                f"{flops / 1e9:.2f} GFLOP at the {rate_name} rate)")
+                f"{t['plain_ms']:.4f} ms, bound {out[name][key]['bound_ms'] * 1e3:.2f} us "
+                f"({out[name][key]['bound_by']}: {nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP at the {rate_name} rate)")
     return out
 
 
@@ -848,7 +874,8 @@ def phase_train_step(dev, data_path) -> dict:
     return out
 
 
-def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0) -> dict:
+def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
+                    hold_tables: bool = True) -> dict:
     """One step at batch 4, card vs CPU, TF32 off on the card, both on the
     CPU's process tables (`OnTables`); the tables themselves agree to
     TABLE_TOL. The ELBO's gradient carries 1/q_{t|0} factors up to 1e9, so
@@ -866,7 +893,11 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0) -
     through the sinusoid's ~1000 rad arguments that moves the activations
     by as much as float32 rounding does, and a gradient through ReLU gates
     (the hollow family's) changes discretely where a gate flips, which one
-    float64 run does not show."""
+    float64 run does not show. A leaf whose float64 gradient is exactly 0
+    (a frozen weight the forward detaches) must be exactly 0 on every side.
+    With `hold_tables` off the tables' card-vs-CPU error is reported, not
+    held (both sides of the step run on the CPU's tables either way), and
+    the TF32 control is held on the gradients alone."""
     from ctdd_tpu_torch.training.optimizers import get_optimizer
     from ctdd_tpu_torch.utils.device import tf32
 
@@ -898,15 +929,22 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0) -
         OnTables(cpu, cpu, torch.float64), {k: v.double() for k, v in weights.items()},
         tx, cfg, loss_fn, x0, ts.double(), draws)
 
-    # the hollow family's key biases have a zero gradient in exact
-    # arithmetic (the softmax over keys is invariant to them): those leaves
-    # hold rounding noise on every side and are scaled by the largest |g|
+    # the hollow family's key biases and the sudoku network's attention-bias
+    # bias have a zero gradient in exact arithmetic (the softmax over keys is
+    # invariant to them): those leaves hold rounding noise on every side and
+    # are scaled by the largest |g|
     top = max(g.abs().max().item() for g in g_64.values())
-    scale = {k: top if k.endswith(("key.bias", "CrossAttention_0.Dense_1.bias"))
+    scale = {k: top if k.endswith(("key.bias", "CrossAttention_0.Dense_1.bias",
+                                   "BiasedSelfAttention_0.Dense_1.bias"))
              else g.abs().max().item() for k, g in g_64.items()}
 
+    def leaf_err(a, b, k):
+        if scale[k] == 0.0:  # a detached leaf: exactly 0 everywhere
+            return 0.0 if not (a[k].any() or b[k].any()) else math.inf
+        return (a[k] - b[k]).abs().max().item() / scale[k]
+
     def grad_err(a, b):
-        return max((a[k] - b[k]).abs().max().item() / scale[k] for k in g_64)
+        return max(leaf_err(a, b, k) for k in g_64)
 
     grad_card, grad_f64 = grad_err(g_gpu, g_cpu), grad_err(g_cpu, g_64)
     gen = torch.Generator().manual_seed(1)
@@ -963,12 +1001,15 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0) -
         "(each must exceed its tol)")
     if s_gpu.step != 1 or s_gpu.opt_state.count != 1 or s_gpu.ema_num_updates != 1:
         raise AssertionError("the step on the card did not advance its counters")
-    if not (table_err <= TABLE_TOL and out["loss_rel_err"] <= TRAIN_LOSS_RTOL
+    out["tables_held"] = hold_tables
+    if not ((table_err <= TABLE_TOL or not hold_tables)
+            and out["loss_rel_err"] <= TRAIN_LOSS_RTOL
             and grad_card <= out["grad_tol"]
             and out["params_moved_otherwise"] <= out["params_tol"]
             and out["ema_moved_otherwise"] <= out["ema_tol"]):
         raise AssertionError(f"train step on the card differs from the CPU: {out}")
-    if not (table_tf32 > TABLE_TOL and out["control_tf32_grad_err"] > out["grad_tol"]):
+    if not ((table_tf32 > TABLE_TOL or not hold_tables)
+            and out["control_tf32_grad_err"] > out["grad_tol"]):
         raise AssertionError(f"the limits pass a step with TF32 on: {out}")
     return out
 
@@ -1026,7 +1067,8 @@ def determinism(dev, cfg, cpu, gpu, loss_fn, x0, ts, draws) -> dict:
     g_out = torch.randn((B, D, S), generator=g, device=dev)
 
     def fwd_bwd():
-        torch.autograd.grad(gpu.apply(weights, x, t, train=True), plist, grad_outputs=g_out)
+        torch.autograd.grad(gpu.apply(weights, x, t, train=True), plist, grad_outputs=g_out,
+                            allow_unused=True)
 
     times = {False: [], True: []}
     try:
@@ -1051,10 +1093,11 @@ def determinism(dev, cfg, cpu, gpu, loss_fn, x0, ts, draws) -> dict:
 
 
 def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
-    """Where one B=64 train step's time goes: wall time, device time of the
-    whole step (torch.profiler), of the network's forward and backward alone
-    and of the optimizer and EMA alone (each traced alone on the same
-    inputs); the loss is the rest of the step's device time."""
+    """Where one train step's time goes at the config's batch: wall time,
+    device time of the whole step (torch.profiler), of the network's forward
+    and backward alone and of the optimizer and EMA alone (each traced alone
+    on the same inputs); the loss is the rest of the step's device time.
+    `data_path` is an MNIST-layout npz, or the (N, D) pool itself."""
     from torch.profiler import ProfilerActivity, profile
 
     from ctdd_tpu_torch.losses.losses import get_loss
@@ -1069,7 +1112,8 @@ def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
     model = create_model(cfg, device=dev)
     tx = get_optimizer(cfg)
     state = create_train_state(dict(model.net.named_parameters()), tx)
-    data = torch.from_numpy(np.load(data_path)["x_train"].reshape(-1, cfg.model.concat_dim).astype(np.int32)).to(dev)
+    pool = np.load(data_path)["x_train"] if isinstance(data_path, str) else data_path
+    data = torch.from_numpy(pool.reshape(-1, cfg.model.concat_dim).astype(np.int32)).to(dev)
     B = cfg.data.batch_size
     decay = float(cfg.model.ema_decay)
     step = make_device_data_step(model, get_loss(cfg), tx, B, ema_decay=decay)
@@ -1096,7 +1140,7 @@ def train_step_breakdown(dev, cfg, data_path, steps: int = 10) -> dict:
 
     def net_fwd_bwd():
         torch.autograd.grad(model.apply(state.params, x, t, train=True), plist,
-                            grad_outputs=g_out)
+                            grad_outputs=g_out, allow_unused=True)
 
     value, grads = value_and_grad(
         lambda p: model.apply(p, x, t, train=True).float().square().mean(), state.params)
@@ -1371,16 +1415,27 @@ def phase_mmd(dev, tmpdir: str) -> dict:
     return cli_mmd(dev, tmpdir, "mlp_synthetic", rounds=25)
 
 
-def cli_mmd(dev, tmpdir: str, preset: str, rounds: int) -> dict:
-    """`preset` trained 300 steps by the train CLI; on three steps of its
-    sampler's grid at N=4096, the rate kernels of its path against their
-    plain versions on the step's own inputs (the reverse rates and the
-    posterior on the p0t path; the posterior on the ratio path, whose rates
-    are plain torch); then the eval CLI's MMD (`rounds` x 4096 samples, EMA
-    weights, the preset's sampler, all at once) with its exact launch
-    counts; held between data vs data and uniform random bits vs data."""
+def train_cli(tmpdir: str, preset: str) -> tuple:
+    """`preset` trained 300 steps by the train CLI: (its steps/s, its
+    checkpoint directory)."""
     import re
 
+    lines = run_cli("train", "--preset", preset, "--iters", "300", "--set",
+                    f"save_location={tmpdir}/{preset}", "saving.checkpoint_freq=150")
+    m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
+    log(f"  {lines[-1]}")
+    return float(m.group(1)), f"{m.group(2)}/checkpoints"
+
+
+def cli_mmd(dev, tmpdir: str, preset: str, rounds: int, trained: tuple = None) -> dict:
+    """`preset` trained 300 steps by the train CLI (`train_cli`, or its
+    result `trained`); on three steps of its sampler's grid at N=4096, the
+    rate kernels of its path against their plain versions on the step's own
+    inputs (the reverse rates and the posterior on the p0t path; the
+    posterior on the ratio path, whose rates are plain torch); then the
+    eval CLI's MMD (`rounds` x 4096 samples, EMA
+    weights, the preset's sampler, all at once) with its exact launch
+    counts; held between data vs data and uniform random bits vs data."""
     from ctdd_tpu_torch.config.presets import get_preset
     from ctdd_tpu_torch.data.loaders import get_dataset
     from ctdd_tpu_torch.metrics.mmd import eval_mmd
@@ -1388,11 +1443,7 @@ def cli_mmd(dev, tmpdir: str, preset: str, rounds: int) -> dict:
     from ctdd_tpu_torch.sampling.samplers import get_sampler
     from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
 
-    lines = run_cli("train", "--preset", preset, "--iters", "300", "--set",
-                    f"save_location={tmpdir}/{preset}", "saving.checkpoint_freq=150")
-    m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
-    train_rate, ckpt_dir = float(m.group(1)), f"{m.group(2)}/checkpoints"
-    log(f"  {lines[-1]}")
+    train_rate, ckpt_dir = trained or train_cli(tmpdir, preset)
 
     cfg = get_preset(preset)
     model = create_model(cfg, device=dev)
@@ -1452,16 +1503,25 @@ def phase_fid(ckpt_dir: str, data_path: str, npz: str) -> dict:
     other stand-in images) and below seeded uniform noise, both levels taken
     by the same eval in the same features (`--fid-levels`); then with
     Inception on (a)'s random-weight npz (a check of the pipeline at 299,
-    no quality number)."""
+    no quality number). The three evals run at once, as three processes
+    sharing the card (one after another until phase [15] came; cut for
+    time): their wall times are not figures, their values and launch
+    counts are each process's own."""
+    from concurrent.futures import ThreadPoolExecutor
+
     common = ["--preset", "tauUnet_mnist", "--ckpt", ckpt_dir, "--metric", "fid",
               "--samples", str(FID_SAMPLES), "--batch", str(FID_SAMPLES), "--n-real",
               str(FID_REAL), "--fid-levels", "--set", "sampler.use_fused_update=True",
               f"data.location={data_path}"]
     want = {"fused_tau_leap_update": 1000, "reverse_rates": 0, "euler_posterior": 0}
     out = {}
-    for kind in ("trained", "lenet", "inception"):
-        extra = ["--inception-weights", npz] if kind == "inception" else []
-        res = last_json(run_cli("eval", *common, "--features", kind, *extra))
+    kinds = ("trained", "lenet", "inception")
+    with ThreadPoolExecutor(len(kinds)) as pool:
+        runs = {kind: pool.submit(run_cli, "eval", *common, "--features", kind,
+                                  *(["--inception-weights", npz] if kind == "inception" else []))
+                for kind in kinds}
+    for kind in kinds:
+        res = last_json(runs[kind].result())
         out[kind] = dict(fid=res["value"], real_vs_real=res["real_vs_real"], noise=res["noise"],
                          kernel_launches=res["kernel_launches"], step=res["step"])
         log(f"  FID ({kind}) of the model trained {res['step']} steps: {res['value']:.4f}; "
@@ -1507,7 +1567,7 @@ def phase_bench(steps: int) -> dict:
 
 LOGIT_FLOOR_MULT = 6.0  # (a) hollow logits, card vs CPU, in units of the CPU's float32 error
 HOLLOW_TRAIN_STEPS = 50  # (b)
-SYNTH_ROUNDS = 5  # (d) MMD rounds of 4096 samples (the protocol's 25, cut for time)
+SYNTH_ROUNDS = 3  # (d) MMD rounds of 4096 samples (the protocol's 25; 5 until phase [15] came, cut for time)
 BF16_FLOOR_MULT = 2.0  # (e) card bf16 vs f32 logits, in units of the CPU's own bf16 vs f32
 BF16_CONTROL_NOISE = 0.01  # (e) the control: weights perturbed by this relative noise
 
@@ -1608,8 +1668,8 @@ def hollow_training(dev, cfg, data_path) -> dict:
 
 
 def hollow_serving(dev, path: str) -> dict:
-    """(c) The trained checkpoint served over HTTP, one batch of 16 after a
-    warm-up batch: the preset's CRMLBJF (= LBJF, 1000 steps, the corrector
+    """(c) The trained checkpoint served over HTTP, one batch of 16 (no
+    warm-up batch since phase [15] came; cut for time): the preset's CRMLBJF (= LBJF, 1000 steps, the corrector
     off below min_t), so exactly 1000 Euler-posterior launches and none of
     the reverse-rates kernel (the ratio rates are plain torch). First the
     posterior kernel against its plain version on three steps' own inputs."""
@@ -1640,8 +1700,8 @@ def hollow_serving(dev, path: str) -> dict:
                            float(hs[i]), worst, "ratio rates (plain torch); ")
     launches, elapsed = serve_checkpoint(
         dev, f"holvisual_mnist trained {HOLLOW_TRAIN_STEPS} steps", cfg, path, 16,
-        {"euler_posterior": steps}, warmup=True)
-    return dict(launches=launches, seconds=elapsed, samples_per_s=16 / elapsed, warm=True,
+        {"euler_posterior": steps}, warmup=False)
+    return dict(launches=launches, seconds=elapsed, samples_per_s=16 / elapsed, warm=False,
                 posterior_vs_plain=worst)
 
 
@@ -1731,15 +1791,412 @@ def phase_hollow(dev, tmpdir: str, data_path: str, f32_breakdown: dict) -> dict:
     log("  (c) serving the trained checkpoint")
     served = hollow_serving(dev, trained["checkpoint"])
     log(f"  (d) hollow_synthetic and bert_synthetic through the CLIs, MMD at "
-        f"{SYNTH_ROUNDS} x 4096")
-    synthetic = {p: cli_mmd(dev, tmpdir, p, rounds=SYNTH_ROUNDS)
-                 for p in ("hollow_synthetic", "bert_synthetic")}
+        f"{SYNTH_ROUNDS} x 4096 (both train CLIs at once, sharing the card: cut for "
+        "time when phase [15] came, so their steps/s are not figures)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    presets = ("hollow_synthetic", "bert_synthetic")
+    with ThreadPoolExecutor(len(presets)) as pool:
+        runs = {p: pool.submit(train_cli, tmpdir, p) for p in presets}
+    synthetic = {p: cli_mmd(dev, tmpdir, p, rounds=SYNTH_ROUNDS, trained=runs[p].result())
+                 for p in presets}
     log("  (e) bf16 compute of the flagship")
     bf16 = bf16_check(dev, data_path, f32_breakdown)
     seconds = time.perf_counter() - t0
     log(f"  phase [14]: {seconds:.1f} s")
     return dict(vs_cpu=vs_cpu, training=trained["record"], serving=served,
                 synthetic=synthetic, bf16=bf16, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the maze, sudoku and protein presets
+# ---------------------------------------------------------------------------
+
+SUDOKU_TRAIN_STEPS = 401  # (c): 100 steps an epoch, a pool every 4: the async swap at 400
+MAZE_TRAIN_STEPS = 101  # (d): 100 steps an epoch: the synchronous swap at 100
+FAMILY_STEPS = 50  # (e) hollow_maze and hollow_protein
+SHORT_STEPS = 5  # (e) protein_maze, bert_maze, bert_mazemasked, hollow_maze_distr
+DETERMINISM_STEPS = 20  # (f)
+
+
+def pool_digest(pool) -> str:
+    """The digest the training loop prints for a pool it swaps in."""
+    import hashlib
+
+    flat = np.asarray(pool).reshape(len(pool), -1).astype(np.int32)
+    return hashlib.sha256(flat.tobytes()).hexdigest()[:16]
+
+
+def data_pools() -> dict:
+    """(a) The port's C++ generators built from ctdd_tpu_torch/csrc/
+    datagen.cpp on this host; Maze3S's 6400-maze and SudokuDataset's
+    12800-board pools of the presets, timed; every maze its own shortest
+    path and every board a valid solution; `regenerate(1)` differs from pool
+    0, and a second instance's `regenerate(1)` equals the first's."""
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.data import native
+    from ctdd_tpu_torch.data.loaders import get_dataset
+    from ctdd_tpu_torch.data.maze import maze_acc
+    from ctdd_tpu_torch.data.sudoku import sudoku_acc
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"  {lib.name} built from {native.SOURCE.name} in {time.perf_counter() - t0:.2f} s")
+    out, datasets = {}, {}
+    for preset, acc in (("tauUnet_maze", maze_acc), ("sudoku", sudoku_acc)):
+        cfg = get_preset(preset)
+        t0 = time.perf_counter()
+        ds = get_dataset(cfg)
+        gen_s = time.perf_counter() - t0
+        pool0 = ds.data.copy()
+        t0 = time.perf_counter()
+        value = acc(pool0)
+        acc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool1 = ds.regenerate(1).copy()
+        regen_s = time.perf_counter() - t0
+        again = get_dataset(cfg).regenerate(1)
+        out[preset] = dict(dataset=cfg.data.name, shape=list(pool0.shape),
+                           pool_seconds=gen_s, regenerate_seconds=regen_s,
+                           accuracy=value, accuracy_seconds=acc_s)
+        log(f"  {cfg.data.name} ({preset}): pool {tuple(pool0.shape)} in {gen_s:.3f} s, "
+            f"regenerate(1) {regen_s:.3f} s; {acc.__name__} {value} ({acc_s:.2f} s)")
+        if value != 1.0:
+            raise AssertionError(f"{cfg.data.name}: {acc.__name__} of the pool is {value}")
+        if np.array_equal(pool1, pool0) or not np.array_equal(again, pool1):
+            raise AssertionError(f"{cfg.data.name}: regenerate(1) is pool 0, or not seeded")
+        datasets[preset] = ds
+    return dict(record=out, datasets=datasets)
+
+
+def nll_loss(cfg):
+    """NLLOriginal on an injected x_t, dropout off."""
+    from ctdd_tpu_torch.utils.math import mean_cross_entropy
+
+    def fn(model, p, x0, ts, draws):
+        (xt,) = draws
+        return mean_cross_entropy(model.apply(p, xt, ts), x0)
+    return fn
+
+
+def ddsm_vs_cpu(dev, preset: str, x0: np.ndarray) -> dict:
+    """(b) Full-width logits at B=4, card (TF32 off) vs the port's CPU, held
+    as [14](a) holds the hollow logits (LOGIT_FLOOR_MULT times the CPU's own
+    float32 error against a float64 copy of the network), with TF32 on as
+    the control that must fail; then one B=4 step of the preset's loss
+    (NLLOriginal for sudoku, CTElbo for protein_maze) on draws made once on
+    the CPU, held as [12](a) holds the flagship's (`hold_train_step`, the
+    times one ulp off in 4 draws; the Fourier projection's arguments reach
+    hundreds of rad). The tables are reported, not held: both sides of the
+    step run on the CPU's."""
+    import copy
+
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.losses.losses import sample_xt, sample_xt_xtilde
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.utils.device import tf32, tf32_off
+
+    cfg = get_preset(preset)
+    cpu = create_model(cfg, device="cpu")
+    cpu.net.init_weights(torch.Generator().manual_seed(0))
+    cpu.net.eval()
+    gpu = create_model(cfg, device=dev)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    gpu.net.eval()
+    net64 = copy.deepcopy(cpu.net).double()
+    n_params = sum(p.numel() for p in gpu.net.parameters())
+    D, S = cfg.model.concat_dim, cfg.data.S
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, S, (4, D)).astype(np.int32))
+    t = torch.tensor([0.05, 0.3, 0.6, 0.95])
+    with torch.inference_mode():
+        ref = cpu.apply(cpu.net, x, t)
+        ref64 = net64(x, t.double())
+        with tf32_off():
+            got = gpu.apply(gpu.net, x.to(dev), t.to(dev)).cpu()
+        with tf32(True):
+            got_tf32 = gpu.apply(gpu.net, x.to(dev), t.to(dev)).cpu()
+    scale = ref64.abs().max().item()
+    floor = (ref.double() - ref64).abs().max().item() / scale
+    err = (got - ref).abs().max().item() / scale
+    err_tf32 = (got_tf32 - ref).abs().max().item() / scale
+    tol = LOGIT_FLOOR_MULT * floor
+    log(f"  {preset} ({type(gpu.net).__name__}, embed {cfg.model.embed_dim}, D={D}, S={S}) "
+        f"{n_params / 1e6:.3f} M params, logits {tuple(got.shape)}, share of the largest "
+        f"|logit| {scale:.3f}: card vs CPU {err:.3e} (tol {tol:.3e} = {LOGIT_FLOOR_MULT:g} x "
+        f"the CPU's float32 error {floor:.3e}); control, TF32 on: {err_tf32:.3e} (must "
+        f"exceed the tol)")
+    if not (got.shape == (4, D, S) and math.isfinite(err) and err <= tol):
+        raise AssertionError(f"{preset} logits on the card differ from the CPU's by {err}")
+    if not err_tf32 > tol:
+        raise AssertionError(f"the {preset} logit limit {tol} passes TF32 logits {err_tf32}")
+
+    x0 = torch.from_numpy(np.asarray(x0[:4]).reshape(4, -1).astype(np.int32))
+    ts = torch.tensor([0.02, 0.1, 0.3, 0.6])
+    gen = torch.Generator().manual_seed(0)
+    if cfg.loss.name == "NLLOriginal":
+        loss_fn, draws = nll_loss(cfg), (sample_xt(gen, cpu.transition(ts), x0),)
+    else:
+        loss_fn = ctelbo_loss(cfg)
+        draws = sample_xt_xtilde(gen, cpu.transition(ts), cpu.rate(ts), x0)
+    log(f"  one B=4 {cfg.loss.name} step, card vs CPU")
+    step = hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws=4,
+                           hold_tables=False)
+    return dict(params=n_params, logits_rel_err=err, logits_floor=floor, logits_tol=tol,
+                logits_tf32_rel_err=err_tf32, step_vs_cpu=step)
+
+
+def swap_line(lines: list, epoch: int, step: int) -> dict:
+    """The training loop's line for the pool of `epoch` swapped in at
+    `step`: the seconds it waited for the generator and the pool's digest."""
+    import re
+
+    for line in lines:
+        m = re.match(rf"pool of epoch {epoch} from step {step}: waited (\S+) s for the "
+                     r"generator, sha256 (\w+)$", line)
+        if m:
+            return dict(epoch=epoch, step=step, waited_s=float(m.group(1)),
+                        digest=m.group(2))
+    raise AssertionError(f"no swap to the pool of epoch {epoch} at step {step}")
+
+
+def cli_train_and_score(dev, tmpdir: str, preset: str, steps: int, pool_ds, epoch: int,
+                        metric: str, samples: int) -> dict:
+    """`preset` trained `steps` steps by the train CLI at the preset's batch,
+    across the pool swap of `epoch`: the pool trained on after it must be
+    `pool_ds.regenerate(epoch)` (digest printed by the loop); then the eval
+    CLI's `metric` on `samples` samples of the preset's sampler (EMA
+    weights, one batch), with its exact launch counts."""
+    import re
+
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+
+    cfg = get_preset(preset)
+    lines = run_cli("train", "--preset", preset, "--iters", str(steps), "--set",
+                    f"save_location={tmpdir}/{preset}_cli")
+    m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
+    train_rate, ckpt_dir = float(m.group(1)), f"{m.group(2)}/checkpoints"
+    boundary = epoch * (cfg.data.num_samples // cfg.data.batch_size)
+    swap = swap_line(lines, epoch, boundary)
+    want_digest = pool_digest(pool_ds.regenerate(epoch))
+    log(f"  {lines[-1]}; the pool of epoch {epoch} swapped in at step {boundary} after "
+        f"waiting {swap['waited_s']:.3f} s for the generator; digest {swap['digest']} "
+        f"(regenerate({epoch}): {want_digest})")
+    if swap["digest"] != want_digest:
+        raise AssertionError(f"{preset}: the pool trained on from step {boundary} is not "
+                             f"regenerate({epoch})")
+    sampler = get_sampler(cfg)
+    ts, _ = sampler.time_grid()
+    per_batch = len(ts) + sampler.num_corrector_steps * int(
+        (ts <= np.float32(sampler.corrector_entry_time)).sum())
+    res = last_json(run_cli("eval", "--preset", preset, "--ckpt", ckpt_dir, "--metric",
+                            metric, "--samples", str(samples)))
+    want = {"fused_tau_leap_update": 0,
+            "reverse_rates": per_batch if sampler.rate_param == "p0t" else 0,
+            "euler_posterior": per_batch}
+    log(f"  {preset}: {metric} of {samples} samples after {steps} steps {res['value']:.4f}; "
+        f"launches {res['kernel_launches']} (expected {want})")
+    if res["kernel_launches"] != want:
+        raise AssertionError(f"eval {metric} {preset} launches {res['kernel_launches']}, "
+                             f"expected {want}")
+    if not 0.0 <= res["value"] <= 1.0:
+        raise AssertionError(f"eval {metric} {preset}: {res['value']}")
+    return dict(preset=preset, steps=steps, train_steps_per_s=train_rate, swap=swap,
+                metric=metric, value=res["value"], samples=samples, sampler=cfg.sampler.name,
+                sampler_steps=len(ts), kernel_launches=res["kernel_launches"],
+                expected_launches=want)
+
+
+def family_cfg(tmpdir: str, preset: str):
+    """`preset` at its full width and batch, no in-loop grid, its protein
+    pool the seeded stand-in."""
+    from ctdd_tpu_torch.config.presets import get_preset
+
+    cfg = get_preset(preset)
+    cfg.save_location = f"{tmpdir}/{preset}"
+    cfg.sampler.sample_freq = 0
+    cfg.saving.checkpoint_freq = FAMILY_STEPS
+    if cfg.data.name.startswith("Protein"):
+        cfg.data.location = f"{tmpdir}/absent_grampa.npy"
+    return cfg
+
+
+def train_family(dev, tmpdir: str, preset: str, steps: int) -> tuple:
+    """`steps` steps of `preset` through train(): finite losses, steps/s,
+    peak memory."""
+    from ctdd_tpu_torch.training.loop import train
+
+    cfg = family_cfg(tmpdir, preset)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, info = train(cfg, n_iters=steps, seed=0, device=dev, log_every=steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = np.asarray(info["step_losses"])
+    rec = dict(preset=preset, loss=cfg.loss.name, batch=cfg.data.batch_size, steps=steps,
+               seconds=seconds, steps_per_s_loop=info["steps_per_sec"],
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               params=sum(v.numel() for v in state.params.values()),
+               loss_first=float(losses[0]), loss_last=float(losses[-1]))
+    log(f"  {preset} ({cfg.model.name}, {cfg.loss.name}, {rec['params'] / 1e6:.2f} M params) "
+        f"{steps} steps at B={cfg.data.batch_size} in {seconds:.1f} s: "
+        f"{info['steps_per_sec']:.2f} steps/s; peak {rec['peak_memory_gb']:.2f} GB; loss "
+        f"{rec['loss_first']:.4f} -> {rec['loss_last']:.4f}")
+    if not np.isfinite(losses).all() or losses.max() >= 1e9:
+        raise AssertionError(f"{preset}: non-finite or skipped losses: {losses.tolist()}")
+    return cfg, state, info, rec
+
+
+def family(dev, tmpdir: str) -> dict:
+    """(e) hollow_maze (ScoreElbo, ratio path) trained FAMILY_STEPS steps and
+    its checkpoint served over HTTP (LBJF/750: exactly 750 posterior
+    launches, none of the reverse rates); hollow_protein (CatRM, S=21, D=48)
+    trained FAMILY_STEPS steps and one batch of 16 sampled (LBJF/100:
+    exactly 100 posterior launches at S=21); four more presets SHORT_STEPS
+    steps each at full width."""
+    from ctdd_tpu_torch.ops import kernel_wrappers
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+
+    out = {}
+    cfg, _, info, out["hollow_maze"] = train_family(dev, tmpdir, "hollow_maze", FAMILY_STEPS)
+    steps = len(get_sampler(cfg).time_grid()[0])
+    launches, elapsed = serve_checkpoint(
+        dev, f"hollow_maze trained {FAMILY_STEPS} steps", cfg,
+        f"{info['paths']['checkpoints']}/{FAMILY_STEPS}.pt", 16, {"euler_posterior": steps},
+        warmup=False)
+    out["hollow_maze"].update(served_launches=launches, served_seconds=elapsed,
+                              served_samples_per_s=16 / elapsed, sampler_steps=steps)
+
+    cfg, state, info, out["hollow_protein"] = train_family(dev, tmpdir, "hollow_protein",
+                                                           FAMILY_STEPS)
+    sampler = get_sampler(cfg)
+    steps = len(sampler.time_grid()[0])
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    samples, _ = sampler.sample(info["model"], state.ema_params,
+                                torch.Generator(device=dev).manual_seed(0), 16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    want = {"fused_tau_leap_update": 0, "reverse_rates": 0, "euler_posterior": steps}
+    log(f"  hollow_protein: one batch of 16, {cfg.sampler.name}/{steps} at S={cfg.data.S}, "
+        f"in {seconds:.2f} s; launches {launches} (expected {want}); values in "
+        f"[{samples.min()}, {samples.max()}]")
+    if launches != want or samples.shape != (16, 48) or samples.min() < 0 \
+            or samples.max() >= cfg.data.S:
+        raise AssertionError(f"hollow_protein sampling: launches {launches}, samples "
+                             f"{samples.shape} in [{samples.min()}, {samples.max()}]")
+    out["hollow_protein"].update(sampled_launches=launches, sample_seconds=seconds,
+                                 sampler_steps=steps)
+    for preset in ("protein_maze", "bert_maze", "bert_mazemasked", "hollow_maze_distr"):
+        out[preset] = train_family(dev, tmpdir, preset, SHORT_STEPS)[3]
+    return out
+
+
+def named_nondeterministic(dev, cfg, pool) -> list:
+    """The ops PyTorch names non-deterministic in one train step of `cfg`
+    (`use_deterministic_algorithms(warn_only=True)`, scoped)."""
+    import warnings
+
+    from ctdd_tpu_torch.losses.losses import get_loss
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+    from ctdd_tpu_torch.training.state import create_train_state
+    from ctdd_tpu_torch.training.train_step import make_device_data_step
+
+    model = create_model(cfg, device=dev)
+    model.net.init_weights(torch.Generator().manual_seed(0))
+    tx = get_optimizer(cfg)
+    state = create_train_state(dict(model.net.named_parameters()), tx)
+    step = make_device_data_step(model, get_loss(cfg), tx, cfg.data.batch_size,
+                                 ema_decay=float(cfg.model.ema_decay))
+    data = torch.from_numpy(np.asarray(pool).reshape(len(pool), -1).astype(np.int32)).to(dev)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, data, 0)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0].strip()[:100]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def determinism_runs(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
+    """(f) Two train() runs from one seed, DETERMINISM_STEPS steps each: the
+    flagship's params must end bit-identical (train() runs cuDNN
+    deterministic); sudoku's and hollow_maze's are reported, and where they
+    differ, the ops PyTorch names non-deterministic in their step."""
+    from ctdd_tpu_torch.training.loop import train
+
+    out = {}
+    for preset in ("tauUnet_mnist", "sudoku", "hollow_maze"):
+        ends = []
+        for run in ("a", "b"):
+            if preset == "tauUnet_mnist":
+                cfg = train_cfg(tmpdir, data_path, f"det_{run}")
+                cfg.sampler.sample_freq = 0
+            else:
+                cfg = family_cfg(tmpdir, preset)
+                cfg.save_location = f"{tmpdir}/det_{preset}_{run}"
+            state, _ = train(cfg, n_iters=DETERMINISM_STEPS, seed=0, device=dev,
+                             log_every=DETERMINISM_STEPS)
+            ends.append(state.params)
+        differ = sorted(k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k]))
+        named = []
+        if differ:
+            pool = pools["sudoku"].data if preset == "sudoku" else \
+                pools["tauUnet_maze"].data if preset == "hollow_maze" else \
+                np.load(data_path)["x_train"]
+            named = named_nondeterministic(dev, cfg, pool)
+        out[preset] = dict(steps=DETERMINISM_STEPS, leaves=len(ends[0]),
+                           differ_count=len(differ), differ_first=differ[:6],
+                           named_nondeterministic_ops=named,
+                           held=preset == "tauUnet_mnist")
+        log(f"  {preset}: two train() runs of {DETERMINISM_STEPS} steps from seed 0, leaves "
+            f"that differ bit for bit: {len(differ)} of {len(ends[0])}"
+            + (f" ({differ[:6]}{' ...' if len(differ) > 6 else ''}; ops PyTorch names "
+               f"non-deterministic: {named})" if differ else "")
+            + ("" if preset == "tauUnet_mnist" else " (reported, not held)"))
+    if out["tauUnet_mnist"]["differ_count"]:
+        raise AssertionError(f"two train() runs of the flagship differ: "
+                             f"{out['tauUnet_mnist']}")
+    return out
+
+
+def phase_maze_sudoku(dev, tmpdir: str, data_path: str) -> dict:
+    """Phase [15]: (a) the data generators and pools, (b) the DDSM networks
+    card vs CPU, (c) sudoku and (d) tauUnet_maze through the train and eval
+    CLIs across a pool swap, (e) the rest of the family, (f) determinism."""
+    t0 = time.perf_counter()
+    log("  (a) the C++ generators and the pools")
+    pools = data_pools()
+    log("  (b) the DDSM networks, card vs CPU")
+    vs_cpu = {"sudoku": ddsm_vs_cpu(dev, "sudoku", pools["datasets"]["sudoku"].data),
+              "protein_maze": ddsm_vs_cpu(dev, "protein_maze",
+                                          pools["datasets"]["tauUnet_maze"].data)}
+    log(f"  (c) sudoku: the train CLI {SUDOKU_TRAIN_STEPS} steps, the eval CLI's sudoku_acc")
+    sudoku = cli_train_and_score(dev, tmpdir, "sudoku", SUDOKU_TRAIN_STEPS,
+                                 pools["datasets"]["sudoku"], 4, "sudoku_acc", 256)
+    from ctdd_tpu_torch.config.presets import get_preset
+
+    log("  sudoku step breakdown")
+    sudoku["train_step"] = train_step_breakdown(dev, get_preset("sudoku"),
+                                                pools["datasets"]["sudoku"].data)
+    log(f"  (d) tauUnet_maze: the train CLI {MAZE_TRAIN_STEPS} steps, the eval CLI's maze_acc")
+    maze = cli_train_and_score(dev, tmpdir, "tauUnet_maze", MAZE_TRAIN_STEPS,
+                               pools["datasets"]["tauUnet_maze"], 1, "maze_acc", 64)
+    log("  (e) the rest of the family")
+    rest = family(dev, tmpdir)
+    log("  (f) determinism of train()")
+    det = determinism_runs(dev, tmpdir, data_path, pools["datasets"])
+    seconds = time.perf_counter() - t0
+    log(f"  phase [15]: {seconds:.1f} s")
+    return dict(data=pools["record"], vs_cpu=vs_cpu, sudoku=sudoku, maze=maze, family=rest,
+                determinism=det, seconds=seconds)
 
 
 def main() -> int:
@@ -1820,6 +2277,9 @@ def main() -> int:
         bench = phase_bench(BENCH_STEPS)
         log("[14] the SDDM hollow family at full width, and the flagship's bf16 compute")
         hollow = phase_hollow(dev, tmpdir, data_path, trained["record"])
+        log("[15] the maze, sudoku and protein presets: data generators, DDSM networks, "
+            "the fresh-pool stream, determinism")
+        maze_sudoku = phase_maze_sudoku(dev, tmpdir, data_path)
 
     by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
@@ -1831,7 +2291,13 @@ def main() -> int:
                   f"holvisual_mnist trained {HOLLOW_TRAIN_STEPS} steps n=16":
                       hollow["serving"]["launches"],
                   **{f"eval mmd {p} {SYNTH_ROUNDS}x4096": r["kernel_launches"]
-                     for p, r in hollow["synthetic"].items()}}
+                     for p, r in hollow["synthetic"].items()},
+                  "eval sudoku_acc 256": maze_sudoku["sudoku"]["kernel_launches"],
+                  "eval maze_acc tauUnet_maze 64": maze_sudoku["maze"]["kernel_launches"],
+                  f"hollow_maze trained {FAMILY_STEPS} steps n=16":
+                      maze_sudoku["family"]["hollow_maze"]["served_launches"],
+                  "hollow_protein sampled n=16":
+                      maze_sudoku["family"]["hollow_protein"]["sampled_launches"]}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -1857,6 +2323,12 @@ def main() -> int:
         }
 
     rr, ep = rate_timing["reverse_rates"], rate_timing["euler_posterior"]
+
+    def sudoku_shape(t):
+        return dict(sudoku_shape=t["shape"], sudoku_ms=t["ms"], sudoku_loop_ms=t["loop_ms"],
+                    sudoku_plain_ms=t["plain_ms"], sudoku_bound_ms=t["bound_ms"],
+                    sudoku_bound_by=t["bound_by"])
+
     record = {"kernels": [
         entry("fused_tau_leap_update", "ctdd_tpu_torch/csrc/fused_tau_leap.cu",
               "ctdd_tpu/ops/fused_update.py:170", max_err, timing[256], timing[16],
@@ -1865,10 +2337,12 @@ def main() -> int:
               expected_jumps_per_row=timing[256]["expected_jumps_per_row"]),
         entry("reverse_rates", "ctdd_tpu_torch/csrc/reverse_rates.cu",
               "ctdd_tpu/ops/pallas_kernels.py:81", rate_err["rate_abs"],
-              rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"]),
+              rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"],
+              **sudoku_shape(rr["sudoku"])),
         entry("euler_posterior", "ctdd_tpu_torch/csrc/euler_posterior.cu",
               "ctdd_tpu/ops/pallas_kernels.py:137", rate_err["post_prob"],
-              ep[256], ep[16], max_log_err=rate_err["post_log"]),
+              ep[256], ep[16], max_log_err=rate_err["post_log"],
+              **sudoku_shape(ep["sudoku"])),
     ]}
     for k in record["kernels"]:
         if k["launches"] <= 0:
@@ -1887,6 +2361,7 @@ def main() -> int:
     log("scoring: " + json.dumps({"inception": inception, "mmd": mmd, "fid": fid,
                                   "bench": bench, "card": card_line()}))
     log("hollow: " + json.dumps({**hollow, "card": card_line()}))
+    log("maze_sudoku_protein: " + json.dumps({**maze_sudoku, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

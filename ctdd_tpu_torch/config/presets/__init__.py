@@ -25,6 +25,13 @@ _PRESETS = {
     "hollow_mnist": "ctdd_tpu_torch.config.presets.mnist_hollow",
     "holvisual_mnist": "ctdd_tpu_torch.config.presets.mnist_hollow_crm",
     "bert_mnist": "ctdd_tpu_torch.config.presets.mnist_bert",
+    "hollow_maze": "ctdd_tpu_torch.config.presets.maze_hollow",
+    "bert_maze": "ctdd_tpu_torch.config.presets.maze_bert",
+    "bert_mazemasked": "ctdd_tpu_torch.config.presets.maze_bert_masked",
+    "hollow_maze_distr": "ctdd_tpu_torch.config.presets.maze_hollow_distr",
+    "protein_maze": "ctdd_tpu_torch.config.presets.maze_protein",
+    "hollow_protein": "ctdd_tpu_torch.config.presets.protein_hollow",
+    "sudoku": "ctdd_tpu_torch.config.presets.sudoku",
 }
 
 

@@ -1,6 +1,7 @@
 """Carry flax weights across into the port's state dicts: the UNet
 (`unet_params_from_flax`), the residual MLP (`mlp_params_from_flax`), the
-hollow family (`hollow_params_from_flax`), the FID
+hollow family (`hollow_params_from_flax`), the DDSM score networks
+(`ddsm_params_from_flax`), the FID
 feature nets (`inception_params_from_flax`, `lenet_params_from_flax`,
 `classifier_params_from_flax`); and a whole JAX train state of the UNet
 (`train_state_from_flax`).
@@ -23,7 +24,9 @@ the output layer.
 The hollow family's modules carry flax's own names, so a flax path is a
 port module path; flax's MultiHeadDotProductAttention stores query, key and
 value kernels as (E, H, Dh) and the output kernel as (H, Dh, E), each
-flattened to a Linear weight.
+flattened to a Linear weight. So do the DDSM networks' modules; their 1D
+conv kernels (K, in, out) become Conv1d weights (out, in, K), and the
+Fourier projection's `W` is carried as it is.
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ def _leaf(kind: str, leaf: str, a: np.ndarray):
         return {"scale": "weight", "bias": "bias"}[leaf], a
     if kind == "embed":
         return {"embedding": "weight"}[leaf], a
+    if kind == "param":
+        return leaf, a
     if kind == "bn":
         return {"scale": "weight", "bias": "bias", "mean": "running_mean",
                 "var": "running_var"}[leaf], a
@@ -79,6 +84,8 @@ def _leaf(kind: str, leaf: str, a: np.ndarray):
         return "weight", a.reshape(a.shape[0], -1).T
     if kind == "dense_out":  # (H, Dh, E) -> (E, H * Dh)
         return "weight", a.reshape(-1, a.shape[-1]).T
+    if kind == "conv1d":
+        return "weight", a.transpose(2, 1, 0)
     if kind == "dense_1x1":
         return "weight", a.T[:, :, None, None]
     raise KeyError(kind)
@@ -205,6 +212,31 @@ def hollow_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
         return module, kind, path[-1]
+
+    return _state_dict_from_flax(tree, net, port_name)
+
+
+def ddsm_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax params of `SudokuScoreNetWrapper` or `ProteinScoreNetWrapper` ->
+    the state dict of the port's `net` of the same config. Raises on a leaf
+    that is missing, left over or of the wrong shape."""
+    import torch.nn as nn
+
+    from ctdd_tpu_torch.networks.ddsm import GaussianFourierProjection
+
+    kinds = ((nn.Linear, "dense"), (nn.Conv1d, "conv1d"), (nn.LayerNorm, "norm"),
+             (nn.GroupNorm, "norm"), (GaussianFourierProjection, "param"))
+
+    def port_name(path: tuple):
+        module = ".".join(path[:-1])
+        try:
+            mod = net.get_submodule(module)
+        except AttributeError:
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}") from None
+        for cls, kind in kinds:
+            if isinstance(mod, cls):
+                return module, kind, path[-1]
+        raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
 
     return _state_dict_from_flax(tree, net, port_name)
 

@@ -1,9 +1,10 @@
 """The registered model zoo: network wrapper x forward process.
 
 Counterpart of ctdd_tpu/models/zoo.py, for the entries built on the UNet
-wrapper (`_unet_paul`), the residual MLP (`_residual_mlp`) and the hollow
-family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`). Registered
-names match the JAX zoo so its configs resolve unchanged.
+wrapper (`_unet_paul`), the residual MLP (`_residual_mlp`), the hollow
+family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`) and the DDSM
+score networks (`_sudoku`, `_protein`). Registered names match the JAX zoo
+so its configs resolve unchanged.
 """
 
 from __future__ import annotations
@@ -53,6 +54,18 @@ def _bert_enum(cfg):
     return BertEnumTransformerWrapper(cfg)
 
 
+def _sudoku(cfg):
+    from ctdd_tpu_torch.networks.ddsm import SudokuScoreNetWrapper
+
+    return SudokuScoreNetWrapper(cfg)
+
+
+def _protein(cfg):
+    from ctdd_tpu_torch.networks.ddsm import ProteinScoreNetWrapper
+
+    return ProteinScoreNetWrapper(cfg)
+
+
 _ZOO = {
     # name                                   (network, process)
     "UniformRateImageX0PredEMA":              (_unet_paul, "UniformRate"),
@@ -70,6 +83,8 @@ _ZOO = {
     "UniVarBertEMA":                          (_bert_enum, "UniformVariantRate"),
     "UniformBertEMA":                         (_bert_enum, "UniformRate"),
     "UniformBDTEMA":                          (_hollow, "UniformRate"),
+    "UniVarScoreNetEMA":                      (_sudoku, "UniformVariantRate"),
+    "UniVarProteinScoreNetEMA":               (_protein, "UniformVariantRate"),
 }
 
 

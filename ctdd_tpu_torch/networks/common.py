@@ -44,11 +44,12 @@ def xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor
 
 @torch.no_grad()
 def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax's defaults for every Linear and Conv2d (a `lecun_normal` kernel,
-    a zero bias) and LayerNorm, GroupNorm and BatchNorm (scale 1, bias 0;
-    running mean 0 and variance 1), in the order of `module.modules()`."""
+    """flax's defaults for every Linear, Conv1d and Conv2d (a `lecun_normal`
+    kernel, a zero bias) and LayerNorm, GroupNorm and BatchNorm (scale 1,
+    bias 0; running mean 0 and variance 1), in the order of
+    `module.modules()`."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -58,6 +59,12 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
     return module
+
+
+def numbered_children(module: nn.Module, kind: str, n: int, start: int = 0) -> list:
+    """The submodules `<kind>_<start>` ... `<kind>_<start + n - 1>`, named as
+    flax numbers a module's children of one class."""
+    return [getattr(module, f"{kind}_{i}") for i in range(start, start + n)]
 
 
 class TimeEmbedMLP(nn.Module):

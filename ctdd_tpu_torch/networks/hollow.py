@@ -37,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ctdd_tpu_torch.networks.common import (
-    PositionalEncoding, lecun_normal_, normalize_states, xavier_uniform_,
+    PositionalEncoding, lecun_normal_, normalize_states, numbered_children, xavier_uniform_,
 )
 from ctdd_tpu_torch.ops.logistic import logistic_bin_logits
 from ctdd_tpu_torch.ops.timestep import timestep_embedding
@@ -57,10 +57,6 @@ def _dtype(module: nn.Module) -> torch.dtype:
     return next(module.parameters()).dtype
 
 
-def _children(module: nn.Module, kind: str, n: int, start: int = 0) -> list:
-    return [getattr(module, f"{kind}_{i}") for i in range(start, start + n)]
-
-
 class MLP(nn.Module):
     """Dense layers with GELU between them."""
 
@@ -72,7 +68,7 @@ class MLP(nn.Module):
         self.n = len(features)
 
     def forward(self, x):
-        for i, dense in enumerate(_children(self, "Dense", self.n)):
+        for i, dense in enumerate(numbered_children(self, "Dense", self.n)):
             x = dense(x)
             if i != self.n - 1:
                 x = _gelu(x)
@@ -194,7 +190,7 @@ class _Blocks(nn.Module):
 
     def _run(self, x, keep=None):
         x = self.dropout(self.pos(x))
-        for blk in _children(self, "TransformerBlock", self.num_layers):
+        for blk in numbered_children(self, "TransformerBlock", self.num_layers):
             x = blk(x, keep)
         return x
 
@@ -255,9 +251,9 @@ class ResidualReadout(nn.Module):
         temb = self.MLP_0(temb)
         if self.first:
             x = self.Dense_0(x)
-        for film, mlp, norm in zip(_children(self, "Dense", self.n, self.first),
-                                   _children(self, "MLP", self.n, 1),
-                                   _children(self, "LayerNorm", self.n)):
+        for film, mlp, norm in zip(numbered_children(self, "Dense", self.n, self.first),
+                                   numbered_children(self, "MLP", self.n, 1),
+                                   numbered_children(self, "LayerNorm", self.n)):
             x = apply_film(film(temb), norm(x + mlp(x)))
         return getattr(self, f"Dense_{self.first + self.n}")(x)
 

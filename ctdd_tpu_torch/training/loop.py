@@ -4,16 +4,24 @@ Counterpart of the single-device paths of ctdd_tpu/training/loop.py: train
 step (over a dataset on the device, or host batches when the dataset is
 larger than `training.device_data_bytes`) -> periodic checkpoint, loss log
 and sample grid with the EMA weights -> a final checkpoint, with a
-checkpoint between steps after SIGTERM/SIGINT/SIGCONT. Sample grids are
-saved as `samples_<step>.npy` (the PNG grid and the loss-curve PNG wait for
-the loggers port). Not ported yet, and refused with NotImplementedError: the
-label-conditional path, D3PM, `data.stream_fresh` and on-device
+checkpoint between steps after SIGTERM/SIGINT/SIGCONT. With
+`data.stream_fresh` a dataset that can `regenerate` (the maze and sudoku
+pools) swaps in a fresh pool on the device every
+`data.stream_refresh_period` epochs, generated on a background thread while
+the device trains when `data.stream_async` is on (the default for a period
+above 1); pools are keyed by the absolute epoch, so a resume replays the
+stream. On a CUDA device cuDNN runs deterministic for the whole run.
+Sample grids are saved as `samples_<step>.npy` (the PNG grid and the
+loss-curve PNG wait for the loggers port). Not ported yet, and refused with
+NotImplementedError: the label-conditional path, D3PM and on-device
 augmentation (`data.use_augm`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
+import threading
 import time
 from typing import Optional
 
@@ -29,13 +37,12 @@ from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
 from ctdd_tpu_torch.training.train_step import make_device_data_step, make_train_step
 from ctdd_tpu_torch.utils import bookkeeping
-from ctdd_tpu_torch.utils.device import resolve_device
+from ctdd_tpu_torch.utils.device import deterministic_cudnn, resolve_device
 
 
 def _refuse_unported(cfg, model):
     unported = {
         "loss.name=d3pm (D3PM)": cfg.loss.name == "d3pm",
-        "data.stream_fresh": bool(cfg.data.get("stream_fresh", False)),
         "data.use_augm (on-device augmentation)": bool(cfg.data.get("use_augm", False)),
         "a label-conditional model": bool(getattr(model, "has_label", False)),
         f"{type(model.net).__name__} (no init_weights)": not hasattr(model.net, "init_weights"),
@@ -49,6 +56,76 @@ def _refuse_unported(cfg, model):
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class PoolStream:
+    """The `data.stream_fresh` pools of a dataset that can `regenerate`.
+
+    The pool trained on at step `it` is the one of epoch
+    (it // steps_per_epoch) // period * period, generated on the host and
+    moved to `device` whole at the swap. With `use_async` the next pool is
+    generated on a background thread (ctypes releases the GIL inside the C++
+    generators) and `collect` waits for it. `swaps` records each swap as
+    (step, epoch, seconds waited for the generator, digest of the pool)."""
+
+    def __init__(self, dataset, steps_per_epoch: int, period: int, device,
+                 use_async: bool):
+        self.dataset = dataset
+        self.steps_per_epoch = steps_per_epoch
+        self.period = period
+        self.steps_per_pool = steps_per_epoch * period
+        self.device = device
+        self.use_async = use_async
+        self.swaps = []
+        self._thread = None
+        self._box = {}
+
+    def epoch(self, it: int) -> int:
+        return (it // self.steps_per_epoch) // self.period * self.period
+
+    def _host_pool(self, it: int) -> np.ndarray:
+        pool = self.dataset.regenerate(self.epoch(it))
+        return pool.reshape(len(self.dataset), -1).astype(np.int32)
+
+    def _to_device(self, it: int, flat: np.ndarray, waited: float) -> torch.Tensor:
+        digest = hashlib.sha256(flat.tobytes()).hexdigest()[:16]
+        self.swaps.append((it, self.epoch(it), waited, digest))
+        print(f"pool of epoch {self.epoch(it)} from step {it}: waited {waited:.3f} s "
+              f"for the generator, sha256 {digest}", flush=True)
+        return torch.from_numpy(flat).to(self.device)
+
+    def build(self, it: int) -> torch.Tensor:
+        """The pool of step `it`, generated now."""
+        t0 = time.perf_counter()
+        flat = self._host_pool(it)
+        return self._to_device(it, flat, time.perf_counter() - t0)
+
+    def prefetch(self, it: int):
+        """Start generating the pool of step `it` on a background thread."""
+
+        def run():
+            try:
+                self._box["flat"] = self._host_pool(it)
+            except Exception as e:  # re-raised by collect()
+                self._box["error"] = e
+
+        self._box = {}
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def collect(self, it: int) -> torch.Tensor:
+        """The pool `prefetch(it)` generates, waiting for its thread."""
+        t0 = time.perf_counter()
+        self.join()
+        waited = time.perf_counter() - t0
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._to_device(it, self._box.pop("flat"), waited)
+
+    def join(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
 
 def _save_sample_grid(model, state, sampler, out_dir: str, step: int,
@@ -76,8 +153,18 @@ def train(
     returns (state, info). `info["steps_per_sec"]` is the steady-state rate:
     the first step, sample grids and checkpoint saves are left out.
     `info["losses"]` holds the logged losses, `info["step_losses"]` every
-    step's (the 1e9 sentinel where a step was skipped)."""
+    step's (the 1e9 sentinel where a step was skipped), `info["pool_swaps"]`
+    the fresh-pool swaps (`PoolStream.swaps`). On a CUDA device cuDNN runs
+    deterministic (`deterministic_cudnn`) until it returns."""
     device = resolve_device(device)
+    with deterministic_cudnn(device):
+        return _train(cfg, n_iters=n_iters, seed=seed, resume_from=resume_from,
+                      writer_kind=writer_kind, log_every=log_every,
+                      profile_steps=profile_steps, device=device)
+
+
+def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
+           profile_steps, device):
     n_iters = n_iters if n_iters is not None else cfg.training.n_iters
 
     # PyTorch's default init draws from the global generator: leave the
@@ -104,6 +191,16 @@ def train(
     device_data = (bool(cfg.training.get("device_data", True))
                    and dataset.data.nbytes <= device_data_cap)
     ema_decay = float(cfg.model.get("ema_decay", 0.0))
+    # stream_fresh: a fresh pool every `stream_refresh_period` epochs, so a
+    # long run sees the reference's fresh-data distribution (its maze and
+    # sudoku datasets generate a board per item) instead of cycling one pool
+    stream = None
+    if (device_data and bool(cfg.data.get("stream_fresh", False))
+            and hasattr(dataset, "regenerate")):
+        period = max(1, int(cfg.data.get("stream_refresh_period", 1)))
+        stream = PoolStream(dataset, max(1, len(dataset) // int(cfg.data.batch_size)),
+                            period, device,
+                            bool(cfg.data.get("stream_async", period > 1)))
     if device_data:
         data = torch.from_numpy(
             dataset.data.reshape(len(dataset), -1).astype(np.int32)).to(device)
@@ -129,9 +226,24 @@ def train(
     t_first = None  # end of the first step
     t_aside = 0.0  # seconds in sample grids and checkpoint saves
     prof = None
+    if stream is not None and n_start > 0:
+        # a resume rebuilds the pool of the epoch it restarts in (the
+        # constructor's pool is epoch 0's)
+        data = stream.build(n_start)
+    if stream is not None and stream.use_async:
+        boundary = (n_start // stream.steps_per_pool + 1) * stream.steps_per_pool
+        if boundary < n_iters:
+            stream.prefetch(boundary)
     try:
         for it in range(n_start, n_iters):
             preempt.exit_if_preempted()  # between steps, where `state` is whole
+            if stream is not None and it > n_start and it % stream.steps_per_pool == 0:
+                if stream.use_async:
+                    data = stream.collect(it)
+                    if it + stream.steps_per_pool < n_iters:
+                        stream.prefetch(it + stream.steps_per_pool)
+                else:
+                    data = stream.build(it)
             if profile_steps and it == profile_steps[0]:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
@@ -173,12 +285,15 @@ def train(
     finally:
         if prof is not None:  # the window's end lies past the last step
             prof.stop()
+        if stream is not None:  # a run stopped early leaves no thread behind
+            stream.join()
         preempt.uninstall()
         writer.flush()
     return state, {
         "paths": paths,
         "losses": losses,
         "step_losses": step_losses,
+        "pool_swaps": [] if stream is None else stream.swaps,
         "steps_per_sec": max(n_iters - n_start - 1, 1) / max(elapsed, 1e-9),
         "model": model,
     }

@@ -33,9 +33,12 @@ def make_loss_fn(model, loss):
 
 
 def value_and_grad(fn: Callable, params: Dict[str, torch.Tensor]):
-    """fn(params) -> scalar; returns (value, grads keyed like params)."""
+    """fn(params) -> scalar; returns (value, grads keyed like params). A
+    parameter that the loss does not reach (a frozen weight the forward
+    detaches) gets a zero gradient, as under JAX's stop_gradient."""
     value = fn(params)
-    grads = torch.autograd.grad(value, list(params.values()))
+    grads = torch.autograd.grad(value, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
     return value.detach(), dict(zip(params, grads))
 
 

@@ -32,3 +32,21 @@ def tf32(enabled: bool):
 def tf32_off():
     """`tf32(False)`: float32 without TF32 rounding inside the block."""
     return tf32(False)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(device):
+    """cuDNN's deterministic algorithms, without its autotuner, inside the
+    block on a CUDA device, so that two identical train steps give identical
+    gradients (PyTorch's defaults pick algorithms that add in another order
+    from run to run); the caller's settings come back after it. A no-op on
+    the CPU."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved

@@ -107,7 +107,8 @@ def test_eval_fid_levels_share_the_features(tmp_path, capsys, features):
                                         ("save_samples", 32, 2)])
 def test_eval_accuracies_and_save_samples(tmp_path, capsys, metric, D, S):
     """The residual MLP at the board's size stands in for the maze and
-    sudoku networks (ported in later slices)."""
+    sudoku networks, which are cheaper to skip here: they are scored through
+    this CLI in test_torch_maze_presets.py."""
     over = MLP + [f"data.S={S}", f"model.concat_dim={D}", f"data.shape=[{D}]"]
     ckpt = _checkpoint(tmp_path, "mlp_synthetic", over, step=3)
     out = str(tmp_path / "s.npy")

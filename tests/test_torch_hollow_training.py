@@ -28,7 +28,8 @@ NETWORKS = {"hollow_synthetic": "HollowTransformerWrapper",
 
 
 def test_the_port_has_eleven_presets():
-    assert sorted(preset_names()) == sorted(NEW + EARLIER)
+    """The eleven presets of slices 1-6 stay (later slices add theirs)."""
+    assert set(NEW + EARLIER) <= set(preset_names())
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -86,6 +86,32 @@ def test_the_hollow_slice_modules_are_covered():
             "ctdd_tpu_torch.config.presets.mnist_bert"} <= set(_modules())
 
 
+def test_the_maze_sudoku_protein_slice_modules_are_covered():
+    """The rglob above reaches the data generators, the DDSM networks and
+    the slice's presets."""
+    assert {"ctdd_tpu_torch.data.native", "ctdd_tpu_torch.data.protein",
+            "ctdd_tpu_torch.data.maze", "ctdd_tpu_torch.data.sudoku",
+            "ctdd_tpu_torch.networks.ddsm",
+            "ctdd_tpu_torch.config.presets.maze_hollow",
+            "ctdd_tpu_torch.config.presets.maze_bert",
+            "ctdd_tpu_torch.config.presets.maze_bert_masked",
+            "ctdd_tpu_torch.config.presets.maze_hollow_distr",
+            "ctdd_tpu_torch.config.presets.maze_protein",
+            "ctdd_tpu_torch.config.presets.protein_hollow",
+            "ctdd_tpu_torch.config.presets.sudoku"} <= set(_modules())
+
+
+def test_the_generators_build_only_from_the_ports_source():
+    """The port's generator library is built from ctdd_tpu_torch/csrc/
+    datagen.cpp into ctdd_tpu_torch/csrc/build/, never from or into the JAX
+    package's native/."""
+    from ctdd_tpu_torch.data import native
+
+    assert native.SOURCE == ROOT / "ctdd_tpu_torch" / "csrc" / "datagen.cpp"
+    assert native.library_path().parent == ROOT / "ctdd_tpu_torch" / "csrc" / "build"
+    assert native.build() == native.library_path()
+
+
 def test_eval_and_bench_run_as_modules_with_jax_blocked(tmp_path):
     """`-m ctdd_tpu_torch.eval` and `-m ctdd_tpu_torch.bench` end to end in a
     fresh process where importing JAX fails: an MLP checkpoint's samples,
