@@ -23,9 +23,11 @@ Phases (any fault exits non-zero; nothing is caught):
               batch of the flagship sampler with the fused update
   8. rates    reverse-rates and Euler-posterior kernels vs their plain
               versions, per-sample and shared tables, real process tables
-              (S up to 256; sudoku's S=9 and hollow_protein's S=21 too)
+              (S up to 256; sudoku's S=9, hollow_protein's S=21,
+              pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2) too)
   9. timing   both kernels, plain versions and bounds at N=256 and N=16
-              (and at sudoku's sampling shape N=256, D=81, S=9)
+              (and at sudoku's sampling shape N=256, D=81, S=9,
+              pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2))
               (phases 8 and 9 run straight after 4)
  10. steps    where a batch-16 LBJF step's time goes
  11. serving  three more seeded checkpoints over HTTP (no warm-up batch),
@@ -79,8 +81,26 @@ Phases (any fault exits non-zero; nothing is caught):
               LBJF/200; (e) hollow_maze trained 50 steps and served
               (LBJF/750 on the ratio path), hollow_protein (S=21) trained
               50 steps and sampled (LBJF/100), four more presets 5 steps
-              each; (f) two train() runs of the flagship bit-identical
-              (sudoku and hollow_maze reported)
+              each
+ 16. slice 8  the rest of the samplers, the EBM and the prefix-conditional
+              path at the presets' widths: (a) pianoroll_cond
+              (SequenceTransformer, L=256, S=129) trained 200 steps by the
+              train CLI, its bare B=64 step timed, cond_mmd by the eval CLI
+              (n=64, ConditionalTauLeaping/1000: exactly 1000 reverse-rates
+              launches) and one ConditionalLBJF batch (1000 of each kernel);
+              (b) ebm_synthetic (binary transformer EBM, D=32) trained 300
+              steps by the train CLI (its loss falls), MMD at 3 x 256 by the
+              eval CLI: with CRMebmLBJF/750 (2250 posterior launches at S=2)
+              between data vs data and the mean of uniform random bits over
+              20 eval seeds, with ExactSampling/750 (no kernel) between data
+              vs data and 3 std above that mean; (c) PCTauL and TAULStepSize on the flagship with a live
+              corrector, exact launch counts and finite traces; (d) card vs
+              CPU: the sequence transformer's and the EBM's outputs, one
+              CondCTElbo, CondNLL (key head) and BinEBMAux step, K steps of
+              PCTauL, ExactSampling and ConditionalTauLeaping with injected
+              noise; (e) two train() runs bit-identical for the flagship,
+              sudoku, hollow_maze and pianoroll_cond (train() runs PyTorch's
+              deterministic algorithms)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -332,6 +352,8 @@ def rate_process(S, dev):
         return fp.make_uniform(21, 0.33, device=dev), _time_grid(0.99999, 0.01, 100)
     if S == 2:  # mlp_synthetic
         return fp.make_uniform(2, 2.0, device=dev), _time_grid(0.99999, 0.007, 100)
+    if S == 129:  # pianoroll_cond
+        return fp.make_uniform(129, 0.03, device=dev), _time_grid(1.0, 0.01, 1000)
     return (fp.make_gaussian_target(S, 6.0, 512.0, 3.0, 100.0, device=dev),
             _time_grid(1.0, 0.01, 1000))
 
@@ -375,7 +397,8 @@ def phase_rate_kernels(dev) -> dict:
     worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
     for N, D, S in [(16, 784, 256), (3, 77, 256), (16, 225, 3), (5, 32, 2), (3, 77, 8),
                     (2, 129, 256), (1, 5, 256), (2, 129, 12), (16, 81, 9), (3, 81, 9),
-                    (16, 48, 21), (3, 48, 21)]:
+                    (16, 48, 21), (3, 48, 21), (64, 224, 129), (3, 224, 129),
+                    (256, 32, 2)]:
         for per_sample, fracs in ((True, (0.1, 0.5, 0.95)), (False, (0.1,)),
                                   (False, (0.5,)), (False, (0.95,))):
             logits, qc, qt0, rc, x, h = rate_inputs(
@@ -446,10 +469,12 @@ def phase_rate_timing(dev) -> dict:
     from ctdd_tpu_torch.ops import rate_kernels as rk
 
     out = {"reverse_rates": {}, "euler_posterior": {}}
-    # the flagship's shapes, and sudoku's sampling shape (the eval's 256
-    # boards, S=9), keyed "sudoku"
+    # the flagship's shapes; sudoku's sampling shape (the eval's 256 boards,
+    # S=9), pianoroll_cond's (cond_mmd's 64 suffixes of 224, S=129) and the
+    # EBM's (256 rows of 32 bits), keyed by name
     for key, (N, D, S) in ((256, (256, 784, 256)), (16, (16, 784, 256)),
-                           ("sudoku", (256, 81, 9))):
+                           ("sudoku", (256, 81, 9)), ("pianoroll", (64, 224, 129)),
+                           ("ebm", (256, 32, 2))):
         logits, qc, qt0, rc, x, h = rate_inputs(N, D, S, (0.5,), 1, dev, False)
         iters = 20 if N * D * S > 10**6 else 200
         rev = rk.reverse_rates(logits, qc, qt0, rc, x)
@@ -755,6 +780,7 @@ TRAIN_LOSS_RTOL = 1e-4  # (a) the loss, card vs CPU, float32 with TF32 off
 GRAD_FLOOR_MULT = 6.0  # (a) gradients: cuDNN's conv algorithms (Winograd,
 # implicit GEMM) round otherwise than the CPU's; allowed in units of the
 # CPU's own float32 error against float64
+FLOAT64_GRAD_TOL = 1e-9  # [16](d): the steps in float64, card vs CPU (read 4e-13-4.5e-12)
 FLOOR_MULT = 4.0  # (a) updates: allowed, in units of their floor
 MOVED_BY = 0.1  # (a): "moved otherwise" = updates that differ by > 0.1 lr
 MOVED_SHARE_ABS = 1e-4  # (a): ... plus this share of the entries
@@ -813,8 +839,8 @@ class OnTables:
     def rate(self, t):
         return self.tables.rate(t.cpu().float()).to(self.model.device, self.dtype)
 
-    def apply(self, params, x, t, train=False):
-        return self.model.apply(params, x, t.to(self.dtype), train=train)
+    def apply(self, params, x, t, train=False, **kwargs):
+        return self.model.apply(params, x, t.to(self.dtype), train=train, **kwargs)
 
 
 def ctelbo_loss(cfg):
@@ -875,7 +901,8 @@ def phase_train_step(dev, data_path) -> dict:
 
 
 def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
-                    hold_tables: bool = True) -> dict:
+                    hold_tables: bool = True, invariant: tuple = (),
+                    float64_tol: float = None) -> dict:
     """One step at batch 4, card vs CPU, TF32 off on the card, both on the
     CPU's process tables (`OnTables`); the tables themselves agree to
     TABLE_TOL. The ELBO's gradient carries 1/q_{t|0} factors up to 1e9, so
@@ -897,7 +924,15 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
     (a frozen weight the forward detaches) must be exactly 0 on every side.
     With `hold_tables` off the tables' card-vs-CPU error is reported, not
     held (both sides of the step run on the CPU's tables either way), and
-    the TF32 control is held on the gradients alone."""
+    the TF32 control is held on the gradients alone. `invariant` names more
+    leaves (by suffix) whose gradient is 0 in exact arithmetic. With
+    `float64_tol` the step is also held in float64 on both sides: the
+    card's gradient within `float64_tol` of the CPU's, per leaf on the same
+    scale, and the card's float32 gradient against the CPU's float64, the
+    control, must exceed it. Where the float32 limit has little room against
+    TF32 (a loss with 1/q_{t|0} factors up to 1e9 makes both errors large),
+    this holds the card's arithmetic to the CPU's without float32 rounding
+    in the way."""
     from ctdd_tpu_torch.training.optimizers import get_optimizer
     from ctdd_tpu_torch.utils.device import tf32
 
@@ -935,7 +970,7 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
     # are scaled by the largest |g|
     top = max(g.abs().max().item() for g in g_64.values())
     scale = {k: top if k.endswith(("key.bias", "CrossAttention_0.Dense_1.bias",
-                                   "BiasedSelfAttention_0.Dense_1.bias"))
+                                   "BiasedSelfAttention_0.Dense_1.bias", *invariant))
              else g.abs().max().item() for k, g in g_64.items()}
 
     def leaf_err(a, b, k):
@@ -981,6 +1016,9 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
         ema_moved_otherwise=moved_otherwise(s_gpu.ema_params, s_cpu.ema_params),
         ema_floor=moved_otherwise(s_cpu.ema_params, s_64.ema_params),
         control_tf32_table_err=table_tf32, control_tf32_grad_err=grad_err(g_tf32, g_cpu))
+    if float64_tol is not None:
+        out.update(grad_float64_tol=float64_tol,
+                   control_float32_vs_float64=grad_err(g_gpu, g_64))
     out["params_tol"] = FLOOR_MULT * out["params_floor"] + MOVED_SHARE_ABS
     out["ema_tol"] = FLOOR_MULT * out["ema_floor"] + MOVED_SHARE_ABS
     log(f"  process tables at the step's times, card vs CPU: {table_err:.3e} (q_{{t|0}} "
@@ -992,7 +1030,10 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
         f"{grad_floor:.3e}: against float64 {grad_f64:.3e}"
         + (f", with the times one ulp off ({ulp_draws} draws) {grad_ulp:.3e})"
            if ulp_draws else ")")
-        + f"; in float64 on both, card vs CPU {grad_float64_devices:.3e} (not held)")
+        + f"; in float64 on both, card vs CPU {grad_float64_devices:.3e} "
+        + ("(not held)" if float64_tol is None else
+           f"(tol {float64_tol:.0e}; control, the card's float32 against the CPU's "
+           f"float64: {out['control_float32_vs_float64']:.3e}, must exceed the tol)"))
     for what in ("params", "ema"):
         log(f"  {what} after the step, share whose update differs by > {MOVED_BY:g} lr: "
             f"card vs CPU {out[what + '_moved_otherwise']:.3e} (tol {out[what + '_tol']:.3e}; "
@@ -1006,10 +1047,12 @@ def hold_train_step(cfg, cpu, gpu, loss_fn, x0, ts, draws, ulp_draws: int = 0,
             and out["loss_rel_err"] <= TRAIN_LOSS_RTOL
             and grad_card <= out["grad_tol"]
             and out["params_moved_otherwise"] <= out["params_tol"]
-            and out["ema_moved_otherwise"] <= out["ema_tol"]):
+            and out["ema_moved_otherwise"] <= out["ema_tol"]
+            and (float64_tol is None or grad_float64_devices <= float64_tol)):
         raise AssertionError(f"train step on the card differs from the CPU: {out}")
     if not ((table_tf32 > TABLE_TOL or not hold_tables)
-            and out["control_tf32_grad_err"] > out["grad_tol"]):
+            and out["control_tf32_grad_err"] > out["grad_tol"]
+            and (float64_tol is None or out["control_float32_vs_float64"] > float64_tol)):
         raise AssertionError(f"the limits pass a step with TF32 on: {out}")
     return out
 
@@ -1415,13 +1458,14 @@ def phase_mmd(dev, tmpdir: str) -> dict:
     return cli_mmd(dev, tmpdir, "mlp_synthetic", rounds=25)
 
 
-def train_cli(tmpdir: str, preset: str) -> tuple:
-    """`preset` trained 300 steps by the train CLI: (its steps/s, its
-    checkpoint directory)."""
+def train_cli(tmpdir: str, preset: str, steps: int = 300, *sets) -> tuple:
+    """`preset` trained `steps` steps by the train CLI (with `sets`, more
+    `--set` pairs): (its steps/s, its checkpoint directory)."""
     import re
 
-    lines = run_cli("train", "--preset", preset, "--iters", "300", "--set",
-                    f"save_location={tmpdir}/{preset}", "saving.checkpoint_freq=150")
+    lines = run_cli("train", "--preset", preset, "--iters", str(steps), "--set",
+                    f"save_location={tmpdir}/{preset}",
+                    f"saving.checkpoint_freq={steps // 2}", *sets)
     m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
     log(f"  {lines[-1]}")
     return float(m.group(1)), f"{m.group(2)}/checkpoints"
@@ -1567,7 +1611,8 @@ def phase_bench(steps: int) -> dict:
 
 LOGIT_FLOOR_MULT = 6.0  # (a) hollow logits, card vs CPU, in units of the CPU's float32 error
 HOLLOW_TRAIN_STEPS = 50  # (b)
-SYNTH_ROUNDS = 3  # (d) MMD rounds of 4096 samples (the protocol's 25; 5 until phase [15] came, cut for time)
+# (d) MMD rounds of 4096 samples: the protocol's 25; 5 until phase [15] came, 3 until [16]
+SYNTH_ROUNDS = 2  # cut for time
 BF16_FLOOR_MULT = 2.0  # (e) card bf16 vs f32 logits, in units of the CPU's own bf16 vs f32
 BF16_CONTROL_NOISE = 0.01  # (e) the control: weights perturbed by this relative noise
 
@@ -1791,15 +1836,17 @@ def phase_hollow(dev, tmpdir: str, data_path: str, f32_breakdown: dict) -> dict:
     log("  (c) serving the trained checkpoint")
     served = hollow_serving(dev, trained["checkpoint"])
     log(f"  (d) hollow_synthetic and bert_synthetic through the CLIs, MMD at "
-        f"{SYNTH_ROUNDS} x 4096 (both train CLIs at once, sharing the card: cut for "
-        "time when phase [15] came, so their steps/s are not figures)")
+        f"{SYNTH_ROUNDS} x 4096 (both train CLIs at once, then both evals, sharing the "
+        "card: cut for time, so their steps/s are not figures)")
     from concurrent.futures import ThreadPoolExecutor
 
     presets = ("hollow_synthetic", "bert_synthetic")
     with ThreadPoolExecutor(len(presets)) as pool:
         runs = {p: pool.submit(train_cli, tmpdir, p) for p in presets}
-    synthetic = {p: cli_mmd(dev, tmpdir, p, rounds=SYNTH_ROUNDS, trained=runs[p].result())
-                 for p in presets}
+        # the two evals at once too (since phase [16] came)
+        synthetic = {p: pool.submit(cli_mmd, dev, tmpdir, p, rounds=SYNTH_ROUNDS,
+                                    trained=runs[p].result()) for p in presets}
+        synthetic = {p: r.result() for p, r in synthetic.items()}
     log("  (e) bf16 compute of the flagship")
     bf16 = bf16_check(dev, data_path, f32_breakdown)
     seconds = time.perf_counter() - t0
@@ -1812,11 +1859,15 @@ def phase_hollow(dev, tmpdir: str, data_path: str, f32_breakdown: dict) -> dict:
 # phase 15: the maze, sudoku and protein presets
 # ---------------------------------------------------------------------------
 
-SUDOKU_TRAIN_STEPS = 401  # (c): 100 steps an epoch, a pool every 4: the async swap at 400
+SUDOKU_TRAIN_STEPS = 101  # (c): 100 steps an epoch: the async swap at 100
+# (c): a pool every epoch, generated on the background thread (the preset's
+# every 4 epochs, with the swap at step 400, until phase [16] came: cut for time)
+SUDOKU_STREAM = ("data.stream_refresh_period=1", "data.stream_async=True")
 MAZE_TRAIN_STEPS = 101  # (d): 100 steps an epoch: the synchronous swap at 100
 FAMILY_STEPS = 50  # (e) hollow_maze and hollow_protein
-SHORT_STEPS = 5  # (e) protein_maze, bert_maze, bert_mazemasked, hollow_maze_distr
-DETERMINISM_STEPS = 20  # (f)
+SHORT_STEPS = 5  # (e) protein_maze, bert_maze, hollow_maze_distr
+MASKED_STEPS = 2  # (e) bert_mazemasked, 225 masked passes a step (5 until [16] came)
+DETERMINISM_STEPS = 20  # [16](e)
 
 
 def pool_digest(pool) -> str:
@@ -1960,9 +2011,10 @@ def swap_line(lines: list, epoch: int, step: int) -> dict:
 
 
 def cli_train_and_score(dev, tmpdir: str, preset: str, steps: int, pool_ds, epoch: int,
-                        metric: str, samples: int) -> dict:
-    """`preset` trained `steps` steps by the train CLI at the preset's batch,
-    across the pool swap of `epoch`: the pool trained on after it must be
+                        metric: str, samples: int, *sets) -> dict:
+    """`preset` trained `steps` steps by the train CLI at the preset's batch
+    (with `sets`, more `--set` pairs), across the pool swap of `epoch`
+    (every `data.stream_refresh_period` epochs): the pool trained on after it must be
     `pool_ds.regenerate(epoch)` (digest printed by the loop); then the eval
     CLI's `metric` on `samples` samples of the preset's sampler (EMA
     weights, one batch), with its exact launch counts."""
@@ -1973,7 +2025,7 @@ def cli_train_and_score(dev, tmpdir: str, preset: str, steps: int, pool_ds, epoc
 
     cfg = get_preset(preset)
     lines = run_cli("train", "--preset", preset, "--iters", str(steps), "--set",
-                    f"save_location={tmpdir}/{preset}_cli")
+                    f"save_location={tmpdir}/{preset}_cli", *sets)
     m = re.search(r"steps/sec=(\S+) run=(\S+)$", lines[-1])
     train_rate, ckpt_dir = float(m.group(1)), f"{m.group(2)}/checkpoints"
     boundary = epoch * (cfg.data.num_samples // cfg.data.batch_size)
@@ -2018,6 +2070,8 @@ def family_cfg(tmpdir: str, preset: str):
     cfg.saving.checkpoint_freq = FAMILY_STEPS
     if cfg.data.name.startswith("Protein"):
         cfg.data.location = f"{tmpdir}/absent_grampa.npy"
+    if cfg.data.name == "LakhPianoroll":
+        cfg.data.location = f"{tmpdir}/absent_lakh.npy"
     return cfg
 
 
@@ -2091,7 +2145,8 @@ def family(dev, tmpdir: str) -> dict:
     out["hollow_protein"].update(sampled_launches=launches, sample_seconds=seconds,
                                  sampler_steps=steps)
     for preset in ("protein_maze", "bert_maze", "bert_mazemasked", "hollow_maze_distr"):
-        out[preset] = train_family(dev, tmpdir, preset, SHORT_STEPS)[3]
+        out[preset] = train_family(dev, tmpdir, preset,
+                                   MASKED_STEPS if preset == "bert_mazemasked" else SHORT_STEPS)[3]
     return out
 
 
@@ -2126,15 +2181,19 @@ def named_nondeterministic(dev, cfg, pool) -> list:
 
 
 def determinism_runs(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
-    """(f) Two train() runs from one seed, DETERMINISM_STEPS steps each: the
-    flagship's params must end bit-identical (train() runs cuDNN
-    deterministic); sudoku's and hollow_maze's are reported, and where they
-    differ, the ops PyTorch names non-deterministic in their step."""
+    """[16](e) Two train() runs from one seed, DETERMINISM_STEPS steps each,
+    must end with every parameter bit-identical: the flagship, sudoku,
+    hollow_maze (memory-efficient attention, whose backward added with
+    atomics until train() ran PyTorch's deterministic algorithms) and
+    pianoroll_cond (the sequence transformer); each run's steps/s (beside
+    [16]'s evals: not figures). Where they differ, the ops PyTorch names
+    non-deterministic in their step."""
+    from ctdd_tpu_torch.data.loaders import get_dataset
     from ctdd_tpu_torch.training.loop import train
 
     out = {}
-    for preset in ("tauUnet_mnist", "sudoku", "hollow_maze"):
-        ends = []
+    for preset in ("tauUnet_mnist", "sudoku", "hollow_maze", "pianoroll_cond"):
+        ends, rates = [], []
         for run in ("a", "b"):
             if preset == "tauUnet_mnist":
                 cfg = train_cfg(tmpdir, data_path, f"det_{run}")
@@ -2142,35 +2201,38 @@ def determinism_runs(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
             else:
                 cfg = family_cfg(tmpdir, preset)
                 cfg.save_location = f"{tmpdir}/det_{preset}_{run}"
-            state, _ = train(cfg, n_iters=DETERMINISM_STEPS, seed=0, device=dev,
-                             log_every=DETERMINISM_STEPS)
+            state, info = train(cfg, n_iters=DETERMINISM_STEPS, seed=0, device=dev,
+                                log_every=DETERMINISM_STEPS)
             ends.append(state.params)
+            rates.append(info["steps_per_sec"])
         differ = sorted(k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k]))
         named = []
         if differ:
             pool = pools["sudoku"].data if preset == "sudoku" else \
                 pools["tauUnet_maze"].data if preset == "hollow_maze" else \
-                np.load(data_path)["x_train"]
+                np.load(data_path)["x_train"] if preset == "tauUnet_mnist" else \
+                get_dataset(cfg).data
             named = named_nondeterministic(dev, cfg, pool)
-        out[preset] = dict(steps=DETERMINISM_STEPS, leaves=len(ends[0]),
-                           differ_count=len(differ), differ_first=differ[:6],
-                           named_nondeterministic_ops=named,
-                           held=preset == "tauUnet_mnist")
-        log(f"  {preset}: two train() runs of {DETERMINISM_STEPS} steps from seed 0, leaves "
+        out[preset] = dict(steps=DETERMINISM_STEPS, batch=cfg.data.batch_size,
+                           leaves=len(ends[0]), differ_count=len(differ),
+                           differ_first=differ[:6], named_nondeterministic_ops=named,
+                           steps_per_s=rates)
+        log(f"  {preset}: two train() runs of {DETERMINISM_STEPS} steps from seed 0 at "
+            f"B={cfg.data.batch_size} ({rates[0]:.2f} and {rates[1]:.2f} steps/s), leaves "
             f"that differ bit for bit: {len(differ)} of {len(ends[0])}"
             + (f" ({differ[:6]}{' ...' if len(differ) > 6 else ''}; ops PyTorch names "
-               f"non-deterministic: {named})" if differ else "")
-            + ("" if preset == "tauUnet_mnist" else " (reported, not held)"))
-    if out["tauUnet_mnist"]["differ_count"]:
-        raise AssertionError(f"two train() runs of the flagship differ: "
-                             f"{out['tauUnet_mnist']}")
+               f"non-deterministic: {named})" if differ else ""))
+    bad = {p: r["differ_count"] for p, r in out.items() if r["differ_count"]}
+    if bad:
+        raise AssertionError(f"two train() runs differ: {bad}")
     return out
 
 
 def phase_maze_sudoku(dev, tmpdir: str, data_path: str) -> dict:
     """Phase [15]: (a) the data generators and pools, (b) the DDSM networks
     card vs CPU, (c) sudoku and (d) tauUnet_maze through the train and eval
-    CLIs across a pool swap, (e) the rest of the family, (f) determinism."""
+    CLIs across a pool swap, (e) the rest of the family. Returns the record
+    and the pools' datasets (for [16](e))."""
     t0 = time.perf_counter()
     log("  (a) the C++ generators and the pools")
     pools = data_pools()
@@ -2178,25 +2240,530 @@ def phase_maze_sudoku(dev, tmpdir: str, data_path: str) -> dict:
     vs_cpu = {"sudoku": ddsm_vs_cpu(dev, "sudoku", pools["datasets"]["sudoku"].data),
               "protein_maze": ddsm_vs_cpu(dev, "protein_maze",
                                           pools["datasets"]["tauUnet_maze"].data)}
-    log(f"  (c) sudoku: the train CLI {SUDOKU_TRAIN_STEPS} steps, the eval CLI's sudoku_acc")
-    sudoku = cli_train_and_score(dev, tmpdir, "sudoku", SUDOKU_TRAIN_STEPS,
-                                 pools["datasets"]["sudoku"], 4, "sudoku_acc", 256)
+    from concurrent.futures import ThreadPoolExecutor
+
     from ctdd_tpu_torch.config.presets import get_preset
 
+    log(f"  (c) sudoku: the train CLI {SUDOKU_TRAIN_STEPS} steps, the eval CLI's "
+        f"sudoku_acc; (d) tauUnet_maze: the train CLI {MAZE_TRAIN_STEPS} steps, the eval "
+        "CLI's maze_acc (both at once, sharing the card since phase [16] came: their CLI "
+        "steps/s are not figures)")
+    with ThreadPoolExecutor(2) as pool:
+        sudoku = pool.submit(cli_train_and_score, dev, tmpdir, "sudoku", SUDOKU_TRAIN_STEPS,
+                             pools["datasets"]["sudoku"], 1, "sudoku_acc", 256,
+                             *SUDOKU_STREAM)
+        maze = pool.submit(cli_train_and_score, dev, tmpdir, "tauUnet_maze",
+                           MAZE_TRAIN_STEPS, pools["datasets"]["tauUnet_maze"], 1,
+                           "maze_acc", 64)
+        sudoku, maze = sudoku.result(), maze.result()
     log("  sudoku step breakdown")
     sudoku["train_step"] = train_step_breakdown(dev, get_preset("sudoku"),
                                                 pools["datasets"]["sudoku"].data)
-    log(f"  (d) tauUnet_maze: the train CLI {MAZE_TRAIN_STEPS} steps, the eval CLI's maze_acc")
-    maze = cli_train_and_score(dev, tmpdir, "tauUnet_maze", MAZE_TRAIN_STEPS,
-                               pools["datasets"]["tauUnet_maze"], 1, "maze_acc", 64)
     log("  (e) the rest of the family")
     rest = family(dev, tmpdir)
-    log("  (f) determinism of train()")
-    det = determinism_runs(dev, tmpdir, data_path, pools["datasets"])
     seconds = time.perf_counter() - t0
     log(f"  phase [15]: {seconds:.1f} s")
     return dict(data=pools["record"], vs_cpu=vs_cpu, sudoku=sudoku, maze=maze, family=rest,
-                determinism=det, seconds=seconds)
+                seconds=seconds), pools["datasets"]
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the samplers, the EBM and the prefix-conditional path
+# ---------------------------------------------------------------------------
+
+COND_TRAIN_STEPS = 200  # (a): pianoroll_cond by the train CLI (the preset's 20000, cut)
+COND_SAMPLES = 64  # (a): cond_mmd's n, ConditionalTauLeaping/1000
+COND_LBJF_BATCH = 16  # (a): one ConditionalLBJF batch
+EBM_TRAIN_STEPS = 300  # (b): ebm_synthetic by the train CLI (the preset's 3000, cut)
+EBM_ROUNDS, EBM_SAMPLES = 3, 256  # (b): the JAX README's EBM protocol (the reference's 25 x 4096)
+UNIFORM_SEEDS = 20  # (b): the uniform-bits level, mean and std over this many eval seeds
+UNIFORM_SPREAD = 3.0  # (b): ExactSampling's ceiling, in std above the uniform-bits mean
+PC_STEPS = 200  # (c): PCTauL and TAULStepSize on the flagship (1000, cut for time)
+PC_ENTRY, PC_CORRECTOR_STEPS = 0.1, 2  # (c): a live corrector
+# (d): the EBM readout's bias: the loss sees energy differences only
+EBM_INVARIANT = ("MaskedTransformer_0.MLP_0.Dense_1.bias",)
+
+
+def counted(fn):
+    """(fn()'s result, each kernel's launches during it): every counter is
+    set to 0 just before and read just after."""
+    from ctdd_tpu_torch.ops import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def seeded_pair(cfg, dev, with64: bool = True):
+    """The preset's model on the CPU and on the card with the weights
+    train(seed=0) starts from, eval mode; and a float64 copy of the CPU's
+    network (`with64`, else None)."""
+    import copy
+
+    from ctdd_tpu_torch.models.base import create_model
+
+    cpu = create_model(cfg, device="cpu")
+    cpu.net.init_weights(torch.Generator().manual_seed(0))
+    cpu.net.eval()
+    gpu = create_model(cfg, device=dev)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    gpu.net.eval()
+    return cpu, gpu, copy.deepcopy(cpu.net).double() if with64 else None
+
+
+def hold_vs_cpu(label: str, run) -> dict:
+    """`run(where, dtype)` -> a CPU tensor: the CPU in float32 and float64,
+    the card in float32 with TF32 off, held as [14](a) holds the hollow
+    logits (within LOGIT_FLOOR_MULT times the CPU's own float32 error
+    against float64, as shares of the largest |value|); the card with TF32
+    on is the control that must fail."""
+    from ctdd_tpu_torch.utils.device import tf32, tf32_off
+
+    with torch.inference_mode():
+        ref, ref64 = run("cpu", torch.float32), run("cpu", torch.float64)
+        with tf32_off():
+            got = run("cuda", torch.float32)
+        with tf32(True):
+            got_tf32 = run("cuda", torch.float32)
+    scale = ref64.abs().max().item()
+    floor = (ref.double() - ref64).abs().max().item() / scale
+    err = (got - ref).abs().max().item() / scale
+    err_tf32 = (got_tf32 - ref).abs().max().item() / scale
+    tol = LOGIT_FLOOR_MULT * floor
+    log(f"  {label} {tuple(got.shape)}, share of the largest |value| {scale:.3f}: card vs "
+        f"CPU {err:.3e} (tol {tol:.3e} = {LOGIT_FLOOR_MULT:g} x the CPU's float32 error "
+        f"{floor:.3e}); control, TF32 on: {err_tf32:.3e} (must exceed the tol)")
+    if not (got.shape == ref.shape and math.isfinite(err) and err <= tol):
+        raise AssertionError(f"{label}: card vs CPU {err} above {tol}")
+    if not err_tf32 > tol:
+        raise AssertionError(f"{label}: the limit {tol} passes TF32 values {err_tf32}")
+    return dict(rel_err=err, floor=floor, tol=tol, tf32_rel_err=err_tf32)
+
+
+def hold_steps(label: str, step, x0, noises, others, launches: dict) -> dict:
+    """`step(where, x, i, noise)` -> the next state: K steps from x0 on the
+    CPU and on the card (TF32 off) with the same injected noise, each card
+    step from the CPU's state. The states that differ stay within
+    STEP_FLIP_FRAC (ties under the logits' ~1e-6 card-vs-CPU difference);
+    the control, the card's steps with the noise `others` of another draw,
+    must differ by more. `launches` is each kernel's exact count over the
+    card's K steps."""
+    from ctdd_tpu_torch.utils.device import tf32_off
+
+    xc, flips, control, moved = x0.clone(), 0, 0, 0
+    got = {}
+    with torch.inference_mode(), tf32_off():
+        for i in range(len(noises)):
+            nxt = step("cpu", xc, i, noises[i])
+            (xd, counts) = counted(lambda: step("cuda", xc, i, noises[i]))
+            for k, v in counts.items():
+                got[k] = got.get(k, 0) + v
+            xo = step("cuda", xc, i, others[i])
+            flips += int((xd.cpu() != nxt).sum())
+            control += int((xo.cpu() != nxt).sum())
+            moved += int((nxt != xc).sum())
+            xc = nxt
+    n = len(noises) * x0.numel()
+    out = dict(states=n, differ=flips, control_differ=control, moved=moved / n,
+               tol=STEP_FLIP_FRAC * n, launches=got)
+    log(f"  {label}: {len(noises)} steps card vs CPU, {flips} of {n} states differ (tol "
+        f"{out['tol']:.1f}; moved {out['moved']:.3f}); control, other noise: {control} "
+        f"differ (must exceed the tol); card launches {got} (expected {launches})")
+    if flips > out["tol"] or not control > out["tol"]:
+        raise AssertionError(f"{label}: {out}")
+    if got != launches:
+        raise AssertionError(f"{label}: launches {got}, expected {launches}")
+    return out
+
+
+def injected_loss(cfg):
+    """The preset's loss on injected times and draws, dropout off."""
+    from ctdd_tpu_torch.losses.losses import get_loss
+
+    loss = get_loss(cfg)
+
+    def fn(model, p, x0, ts, draws):
+        return loss.calc_loss(model, p, None, x0, train=False, ts=ts, samples=draws)
+    return fn
+
+
+def slice8_vs_cpu(dev) -> dict:
+    """(d) Card against CPU: the sequence transformer's logits and key logits
+    at pianoroll_cond's width; the EBM's energies and both mutation
+    enumerators' logits at ebm_synthetic's (`hold_vs_cpu`); one step of
+    CondCTElbo, CondNLL with the key head and BinEBMAux (`hold_train_step`,
+    the times one ulp off in 2 draws); K steps of PCTauL (the flagship,
+    with its corrector), ExactSampling (the EBM) and ConditionalTauLeaping
+    (pianoroll_cond) with injected noise (`hold_steps`)."""
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.data.pianoroll import generate_standin
+    from ctdd_tpu_torch.losses.losses import (
+        bin_ebm_flip_logits, ebm_all_mutation_logits, sample_xt, sample_xt_xtilde,
+    )
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+
+    out = {}
+    g = np.random.default_rng(16)
+    pcfg = get_preset("pianoroll_cond")
+    pcfg.model.aux_key_classes, pcfg.loss.aux_key_weight = 12, 0.5
+    L, P, S = pcfg.data.shape[0], pcfg.sampler.condition_dim, pcfg.data.S
+    cpu, gpu, net64 = seeded_pair(pcfg, dev)
+    seqs = torch.from_numpy(generate_standin(4, L, seed=1))
+    x, t = seqs[:2], torch.tensor([0.3, 0.9])
+    n_params = sum(p.numel() for p in gpu.net.parameters())
+    log(f"  pianoroll_cond SequenceTransformer with the key head: {n_params / 1e6:.3f} M "
+        "params")
+
+    def seq(part):
+        def run(where, dtype):
+            if where == "cpu":
+                net = cpu.net if dtype == torch.float32 else net64
+                return net(x, t.to(dtype), return_aux=True)[part]
+            return gpu.net(x.to(dev), t.to(dev), return_aux=True)[part].cpu()
+        return run
+
+    out["sequence_logits"] = hold_vs_cpu("sequence transformer logits", seq(0))
+    out["sequence_key_logits"] = hold_vs_cpu("sequence transformer key logits", seq(1))
+    ts = torch.tensor([0.1, 0.6])
+    draws = sample_xt_xtilde(torch.Generator().manual_seed(0), cpu.transition(ts),
+                             cpu.rate(ts), seqs[2:, P:])
+    for name in ("CondCTElbo", "CondNLL"):
+        pcfg.loss.name = name
+        log(f"  one B=2 {name} step{' with the key head' if name == 'CondNLL' else ''}, "
+            "card vs CPU")
+        out[f"{name}_step"] = hold_train_step(pcfg, cpu, gpu, injected_loss(pcfg), seqs[2:],
+                                              ts, draws, ulp_draws=2, hold_tables=False,
+                                              float64_tol=FLOAT64_GRAD_TOL)
+
+    ecfg = get_preset("ebm_synthetic")
+    ED = ecfg.model.concat_dim
+    ecpu, egpu, enet64 = seeded_pair(ecfg, dev)
+    bits = torch.from_numpy(g.integers(0, 2, (4, ED)).astype(np.int32))
+    et = torch.tensor([0.05, 0.3, 0.6, 0.95])
+    log(f"  ebm_synthetic BinaryTransformerScoreFunc: "
+        f"{sum(p.numel() for p in egpu.net.parameters()) / 1e6:.3f} M params")
+
+    def ebm(fn):
+        def run(where, dtype):
+            if where == "cpu":
+                net = ecpu.net if dtype == torch.float32 else enet64
+                return fn(ecpu, net, bits, et.to(dtype))
+            return fn(egpu, egpu.net, bits.to(dev), et.to(dev)).cpu()
+        return run
+
+    out["ebm_energies"] = hold_vs_cpu("EBM energies", ebm(
+        lambda m, net, xx, tt: m.apply(net, xx, tt)))
+    out["ebm_all_mutation_logits"] = hold_vs_cpu("EBM all-mutation logits", ebm(
+        lambda m, net, xx, tt: ebm_all_mutation_logits(m, net, xx, tt, 2)))
+    out["ebm_bit_flip_logits"] = hold_vs_cpu("EBM bit-flip logits", ebm(
+        lambda m, net, xx, tt: bin_ebm_flip_logits(m, net, xx, tt)))
+    ets = torch.tensor([0.02, 0.1, 0.3, 0.6])
+    log("  one B=4 BinEBMAux step, card vs CPU")
+    out["BinEBMAux_step"] = hold_train_step(
+        ecfg, ecpu, egpu, injected_loss(ecfg), bits, ets,
+        (sample_xt(torch.Generator().manual_seed(0), ecpu.transition(ets), bits),),
+        ulp_draws=2, hold_tables=False, invariant=EBM_INVARIANT,
+        float64_tol=FLOAT64_GRAD_TOL)
+
+    # K steps with injected noise
+    K = 3
+
+    def uniforms(shape, n=K):
+        return [torch.from_numpy(g.random(shape).astype(np.float32)) for _ in range(n)]
+
+    def gumbels(shape, n=K):
+        return [torch.from_numpy(g.gumbel(size=shape).astype(np.float32)) for _ in range(n)]
+
+    fcfg = full_cfg(fused=False, sampler="PCTauL")
+    fcpu, fgpu, _ = seeded_pair(fcfg, dev, with64=False)
+    pc = get_sampler(fcfg)
+    models = {"cpu": fcpu, "cuda": fgpu}
+
+    def pc_step(where, xx, i, noise):
+        # [5]'s times at half its step: at random weights the flagship's
+        # reverse rates are large (most states move in a step of 1e-3), and
+        # a step here runs two rate passes (the predictor, and the corrector
+        # over 1.5 h), so twice the CDF comparisons that a ~1e-6 difference
+        # of the rates can flip
+        m, grid = models[where], ((0.6, 5e-4), (0.3, 5e-4), (0.05, 5e-4))[i]
+        u1, u2 = (u.to(m.device) for u in noise)
+        xx = pc.step(m, m.net, xx.to(m.device), *grid, u=u1)
+        return pc.corrector_step(m, m.net, xx, *grid, u=u2).cpu()
+
+    FD, FS = fcfg.model.concat_dim, fcfg.data.S
+    fx = torch.from_numpy(g.integers(FS * 2 // 5, FS * 3 // 5, (2, FD)).astype(np.int32))
+    shape = (2, FD, FS)
+    out["PCTauL_steps"] = hold_steps(
+        "PCTauL (flagship, predictor and corrector)", pc_step, fx,
+        list(zip(uniforms(shape), uniforms(shape))), list(zip(uniforms(shape), uniforms(shape))),
+        {"fused_tau_leap_update": 0, "reverse_rates": 2 * K, "euler_posterior": 0})
+
+    exact = get_sampler(ecfg)
+    emodels = {"cpu": ecpu, "cuda": egpu}
+
+    def exact_step(where, xx, i, noise):
+        m = emodels[where]
+        return exact.step(m, m.net, xx.to(m.device), (0.9, 0.5, 0.1)[i], 0.05,
+                          g=noise.to(m.device)).cpu()
+
+    ex = torch.from_numpy(g.integers(0, 2, (8, ED)).astype(np.int32))
+    out["ExactSampling_steps"] = hold_steps(
+        "ExactSampling (ebm_synthetic)", exact_step, ex, gumbels((8, ED, 2)),
+        gumbels((8, ED, 2)), {"fused_tau_leap_update": 0, "reverse_rates": 0,
+                              "euler_posterior": 0})
+
+    cond = get_sampler(pcfg)
+    cmodels = {"cpu": cpu, "cuda": gpu}
+    prefix = seqs[:2, :P]
+
+    def cond_step(where, xx, i, noise):
+        m = cmodels[where]
+        return cond.step(m, m.net, prefix.to(m.device), xx.to(m.device), (0.9, 0.5, 0.1)[i],
+                         0.05, u=noise.to(m.device)).cpu()
+
+    cx = torch.from_numpy(g.integers(0, S, (2, L - P)).astype(np.int32))
+    out["ConditionalTauLeaping_steps"] = hold_steps(
+        "ConditionalTauLeaping (pianoroll_cond)", cond_step, cx, uniforms((2, L - P, S)),
+        uniforms((2, L - P, S)), {"fused_tau_leap_update": 0, "reverse_rates": K,
+                                  "euler_posterior": 0})
+    return out
+
+
+def pc_samplers(dev) -> dict:
+    """(c) PCTauL and TAULStepSize on the flagship at full width, one batch
+    of 16 each with a live corrector (PC_CORRECTOR_STEPS steps at t <=
+    PC_ENTRY), PC_STEPS steps: exact reverse-rates launches (PCTauL's
+    num_steps - 1 predictor steps, TAULStepSize's num_steps, plus the
+    corrector's), TAULStepSize's traces finite with frac_clipped <=
+    frac_jumped."""
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+
+    out = {}
+    for name in ("PCTauL", "TAULStepSize"):
+        cfg = full_cfg(fused=False, sampler=name)
+        cfg.sampler.num_steps = PC_STEPS
+        cfg.sampler.corrector_entry_time = PC_ENTRY
+        cfg.sampler.num_corrector_steps = PC_CORRECTOR_STEPS
+        model = create_model(cfg, device=dev)
+        model.net.init_weights(torch.Generator().manual_seed(0))
+        model.net.eval()
+        sampler = get_sampler(cfg)
+        ts, _ = sampler.time_grid()
+        corrected = int((ts <= np.float32(PC_ENTRY)).sum())
+        want = {"fused_tau_leap_update": 0,
+                "reverse_rates": len(ts) + PC_CORRECTOR_STEPS * corrected,
+                "euler_posterior": 0}
+        t0 = time.perf_counter()
+        (x, traces), launches = counted(lambda: sampler.sample(
+            model, model.net, torch.Generator(device=dev).manual_seed(0), 16))
+        seconds = time.perf_counter() - t0
+        rec = dict(steps=len(ts), corrected_steps=corrected, seconds=seconds,
+                   launches=launches, expected=want)
+        log(f"  {name}: {len(ts)} steps ({corrected} with {PC_CORRECTOR_STEPS} corrector "
+            f"steps) at N=16 in {seconds:.2f} s; launches {launches} (expected {want}); "
+            f"values in [{x.min()}, {x.max()}]")
+        if launches != want or x.shape != (16, cfg.model.concat_dim) or x.min() < 0 \
+                or x.max() >= cfg.data.S:
+            raise AssertionError(f"{name}: {rec}, samples {x.shape}")
+        if name == "TAULStepSize":
+            tr = {k: np.asarray(v) for k, v in traces.items()}
+            ok = (set(tr) == {"frac_jumped", "frac_multi", "frac_clipped"}
+                  and all(v.shape == (len(ts),) and np.isfinite(v).all() for v in tr.values())
+                  and (tr["frac_clipped"] <= tr["frac_jumped"]).all())
+            rec["traces"] = {k: dict(mean=float(v.mean()), max=float(v.max()))
+                             for k, v in tr.items()}
+            log(f"  TAULStepSize traces over {len(ts)} steps: " + ", ".join(
+                f"{k} mean {v['mean']:.4f} max {v['max']:.4f}" for k, v in rec["traces"].items()))
+            if not ok:
+                raise AssertionError(f"TAULStepSize traces: {rec['traces']}")
+        out[name] = rec
+    return out
+
+
+def ebm_levels(dev, cfg) -> dict:
+    """MMD at the EBM protocol of data vs data (eval seed 0, the samplers'
+    ground truth) and of uniform random bits: at seed 0, and their mean and
+    std over eval seeds 0 .. UNIFORM_SEEDS - 1 (one draw of the uniform
+    level spreads by ~7% of it)."""
+    from ctdd_tpu_torch.data.loaders import get_dataset
+    from ctdd_tpu_torch.metrics.mmd import eval_mmd
+
+    dataset = get_dataset(cfg)
+    D = cfg.model.concat_dim
+    uniform = [eval_mmd(cfg, lambda g, n: torch.randint(0, 2, (n, D), generator=g, device=dev),
+                        dataset, EBM_ROUNDS, EBM_SAMPLES, seed=seed, device=dev)
+               for seed in range(UNIFORM_SEEDS)]
+    return dict(
+        uniform=uniform[0], uniform_mean=float(np.mean(uniform)),
+        uniform_std=float(np.std(uniform, ddof=1)),
+        data=eval_mmd(cfg, lambda g, n: dataset.data[torch.randint(
+            0, len(dataset), (n,), generator=g, device=dev).cpu().numpy()],
+            dataset, EBM_ROUNDS, EBM_SAMPLES, device=dev))
+
+
+def trained_model(cfg, dev, ckpt_dir: str, steps: int, ema: bool = True):
+    """The model of `cfg` with the EMA (or raw) weights of `<steps>.pt`."""
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
+
+    model = create_model(cfg, device=dev)
+    ck = load_checkpoint(f"{ckpt_dir}/{steps}.pt", map_location=dev)
+    model.net.load_state_dict(ck["ema_params" if ema else "params"])
+    model.net.eval()
+    return model
+
+
+def one_batch(label, cfg, model, n, want, **kw) -> dict:
+    """One batch of `n` from `model` with the config's sampler, its exact
+    launch counts."""
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+
+    sampler = get_sampler(cfg)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: sampler.sample(
+        model, model.net, torch.Generator(device=model.device).manual_seed(0), n, **kw))
+    seconds = time.perf_counter() - t0
+    samples = out[0] if isinstance(out, tuple) else out
+    log(f"  {label}: one batch of {n}, {cfg.sampler.name}, in {seconds:.2f} s; launches "
+        f"{launches} (expected {want}); values in [{samples.min()}, {samples.max()}]")
+    if launches != want or samples.min() < 0 or samples.max() >= cfg.data.S:
+        raise AssertionError(f"{label}: launches {launches}, samples in "
+                             f"[{samples.min()}, {samples.max()}]")
+    return dict(n=n, sampler=cfg.sampler.name, seconds=seconds, launches=launches,
+                samples=samples)
+
+
+def phase_slice8(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
+    """Phase [16]. (a) pianoroll_cond and (b) ebm_synthetic trained by the
+    train CLI (both at once, sharing the card: their CLI steps/s are not
+    figures); pianoroll_cond's bare B=64 step alone (steps/s, idle share,
+    peak memory); then the eval CLI (cond_mmd with
+    ConditionalTauLeaping/1000; MMD at 3 x 256 with ExactSampling/750 and
+    with CRMebmLBJF/750), the evals at once and beside this process's
+    checks, whose times are not figures: one ConditionalLBJF batch, the
+    EBM's MMD levels and loss, (d) card vs CPU, (c) PCTauL and TAULStepSize
+    on the flagship and (e) two train() runs bit-identical; each with exact
+    launch counts. The EBM's LBJF MMD must lie between data vs data and the
+    uniform-bits mean; ExactSampling's (the preset's sampler, which reads at
+    the uniform level even after the recipe's 3000 steps) between data vs
+    data and UNIFORM_SPREAD std above that mean."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.data.loaders import get_dataset
+    from ctdd_tpu_torch.data.pianoroll import generate_standin, scale_consistency
+    from ctdd_tpu_torch.losses.losses import get_loss
+    from ctdd_tpu_torch.utils.device import deterministic_training
+
+    t0 = time.perf_counter()
+    lakh = f"data.location={tmpdir}/absent_lakh.npy"
+    log(f"  (a), (b) pianoroll_cond {COND_TRAIN_STEPS} and ebm_synthetic {EBM_TRAIN_STEPS} "
+        "steps by the train CLI, at once")
+    with ThreadPoolExecutor(2) as pool:
+        p_run = pool.submit(train_cli, tmpdir, "pianoroll_cond", COND_TRAIN_STEPS, lakh)
+        e_run = pool.submit(train_cli, tmpdir, "ebm_synthetic", EBM_TRAIN_STEPS)
+        (p_rate, p_ckpt), (e_rate, e_ckpt) = p_run.result(), e_run.result()
+
+    pcfg = get_preset("pianoroll_cond")
+    pcfg.data.location = f"{tmpdir}/absent_lakh.npy"
+    log("  (a) pianoroll_cond: the bare B=64 train step, alone, deterministic as train()")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with deterministic_training(dev):
+        step = train_step_breakdown(dev, pcfg, generate_standin(1024, pcfg.data.shape[0]))
+    step["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  peak device memory {step['peak_memory_gb']:.2f} GB")
+
+    ecfg = get_preset("ebm_synthetic")
+    log(f"  (a), (b) the evals at once: cond_mmd n={COND_SAMPLES}, MMD {EBM_ROUNDS} x "
+        f"{EBM_SAMPLES} with ExactSampling and with CRMebmLBJF; beside them one "
+        "ConditionalLBJF batch, (d), (c) and (e)")
+    with ThreadPoolExecutor(3) as pool:
+        p_eval = pool.submit(run_cli, "eval", "--preset", "pianoroll_cond", "--ckpt", p_ckpt,
+                             "--metric", "cond_mmd", "--samples", str(COND_SAMPLES),
+                             "--set", lakh)
+        e_evals = {name: pool.submit(
+            run_cli, "eval", "--preset", "ebm_synthetic", "--ckpt", e_ckpt, "--metric", "mmd",
+            "--rounds", str(EBM_ROUNDS), "--samples", str(EBM_SAMPLES), "--batch", "0",
+            "--set", f"sampler.name={name}") for name in ("ExactSampling", "CRMebmLBJF")}
+        lcfg = get_preset("pianoroll_cond")
+        lcfg.data.location, lcfg.sampler.name = pcfg.data.location, "ConditionalLBJF"
+        P = lcfg.sampler.condition_dim
+        prefixes = generate_standin(COND_LBJF_BATCH, lcfg.data.shape[0])[:, :P]
+        steps = lcfg.sampler.num_steps
+        cond_lbjf = one_batch(
+            f"pianoroll_cond trained {COND_TRAIN_STEPS} steps", lcfg,
+            trained_model(lcfg, dev, p_ckpt, COND_TRAIN_STEPS), COND_LBJF_BATCH,
+            {"fused_tau_leap_update": 0, "reverse_rates": steps, "euler_posterior": steps},
+            conditioner=prefixes)
+        made = cond_lbjf.pop("samples")
+        if not np.array_equal(made[:, :P], prefixes):
+            raise AssertionError("ConditionalLBJF did not keep the prefix")
+        cond_lbjf["scale_consistency"] = scale_consistency(made, P)
+        levels = ebm_levels(dev, ecfg)
+        # the EBM's loss on fixed draws, at the start and trained (raw) weights
+        x0 = torch.from_numpy(get_dataset(ecfg).data[:256].astype(np.int32)).to(dev)
+        model = trained_model(ecfg, dev, e_ckpt, EBM_TRAIN_STEPS, ema=False)
+        with torch.no_grad():
+            losses = {which: float(get_loss(ecfg).calc_loss(
+                model, params, torch.Generator(device=dev).manual_seed(123), x0, train=False))
+                for which, params in (("start", start_weights(ecfg, dev)),
+                                      ("trained", model.net))}
+        log("  (d) card vs CPU")
+        vs_cpu = slice8_vs_cpu(dev)
+        log(f"  (c) PCTauL and TAULStepSize on the flagship, {PC_STEPS} steps, a live "
+            "corrector")
+        pc = pc_samplers(dev)
+        log("  (e) determinism of train() (its steps/s shared with the evals: not figures)")
+        det = determinism_runs(dev, tmpdir, data_path, pools)
+        p_res = last_json(p_eval.result())
+        e_res = {name: last_json(run.result()) for name, run in e_evals.items()}
+
+    want_cond = {"fused_tau_leap_update": 0, "reverse_rates": steps, "euler_posterior": 0}
+    log(f"  pianoroll_cond: cond_mmd {p_res['value']:.6f}, floor {p_res['floor']:.6f}, "
+        f"shuffled anchor {p_res['shuffled']:.6f}; scale_consistency "
+        f"{p_res['scale_consistency']:.4f} (ground truth {p_res['gt_scale_consistency']:.4f}, "
+        f"shuffled {p_res['shuffled_scale_consistency']:.4f}), rest fraction "
+        f"{p_res['model_rest_frac']:.4f} (ground truth {p_res['gt_rest_frac']:.4f}); "
+        f"launches {p_res['kernel_launches']} (expected {want_cond}); the train CLI "
+        f"{p_rate:.2f} steps/s beside the EBM's")
+    if p_res["kernel_launches"] != want_cond or not math.isfinite(p_res["value"]):
+        raise AssertionError(f"eval cond_mmd: {p_res}")
+    e_steps = ecfg.sampler.num_steps
+    want_ebm = {"ExactSampling": {"fused_tau_leap_update": 0, "reverse_rates": 0,
+                                  "euler_posterior": 0},
+                "CRMebmLBJF": {"fused_tau_leap_update": 0, "reverse_rates": 0,
+                               "euler_posterior": EBM_ROUNDS * e_steps}}
+    ceiling = {"ExactSampling": levels["uniform_mean"] + UNIFORM_SPREAD * levels["uniform_std"],
+               "CRMebmLBJF": levels["uniform_mean"]}
+    log(f"  ebm_synthetic: BinEBMAux on fixed draws {losses['start']:.5f} at the start, "
+        f"{losses['trained']:.5f} trained; uniform random bits {levels['uniform_mean']:.6f} "
+        f"+- {levels['uniform_std']:.6f} over {UNIFORM_SEEDS} eval seeds "
+        f"({levels['uniform']:.6f} at seed 0); data vs data {levels['data']:.3e}; the train "
+        f"CLI {e_rate:.2f} steps/s beside pianoroll_cond's")
+    for name, res in e_res.items():
+        log(f"  ebm_synthetic MMD ({name}/{e_steps}, {EBM_ROUNDS} x {EBM_SAMPLES}) "
+            f"{res['value']:.6f}: held between data vs data and {ceiling[name]:.6f}; "
+            f"launches {res['kernel_launches']} (expected {want_ebm[name]})")
+    if not losses["trained"] < losses["start"]:
+        raise AssertionError(f"ebm_synthetic: the loss did not fall: {losses}")
+    for name, res in e_res.items():
+        if res["kernel_launches"] != want_ebm[name] or not (
+                levels["data"] < res["value"] < ceiling[name]):
+            raise AssertionError(f"eval mmd ebm_synthetic {name}: {res}, levels {levels}")
+
+    seconds = time.perf_counter() - t0
+    log(f"  phase [16]: {seconds:.1f} s")
+    return dict(
+        vs_cpu=vs_cpu, pc_samplers=pc,
+        pianoroll_cond=dict(train_steps=COND_TRAIN_STEPS, cli_steps_per_s_shared=p_rate,
+                            train_step=step, cond_mmd=p_res, conditional_lbjf=cond_lbjf),
+        ebm_synthetic=dict(train_steps=EBM_TRAIN_STEPS, cli_steps_per_s_shared=e_rate,
+                           loss=losses, mmd=e_res, levels=levels),
+        determinism=det, seconds=seconds)
 
 
 def main() -> int:
@@ -2208,11 +2775,15 @@ def main() -> int:
     t_start = time.perf_counter()
     from ctdd_tpu_torch.ops import _build
 
-    log("[1] device")
+    def stage(title: str):
+        """A phase's header, with the seconds since the start."""
+        log(f"{title} [{time.perf_counter() - t_start:.0f} s in]")
+
+    stage("[1] device")
     card = card_line()
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    log("[2] build")
+    stage("[2] build")
     t0 = time.perf_counter()
     reports = _build.build(["fused_tau_leap", "reverse_rates", "euler_posterior"])
     seconds = time.perf_counter() - t0
@@ -2225,61 +2796,69 @@ def main() -> int:
             + ("not checked (no cuobjdump)" if ops is None else
                ", ".join(f"{n} x {op}" for op, n in sorted(ops.items())) or "none"))
 
-    log("[3] fused tau-leap kernel vs plain version")
+    stage("[3] fused tau-leap kernel vs plain version")
     max_err, flip_frac = phase_kernels(dev)
 
-    log("[4] timing")
+    stage("[4] timing")
     timing = phase_timing(dev)
 
-    log("[8] reverse-rates and Euler-posterior kernels vs plain versions")
+    stage("[8] reverse-rates and Euler-posterior kernels vs plain versions")
     rate_err = phase_rate_kernels(dev)
 
-    log("[9] timing of the rate kernels")
+    stage("[9] timing of the rate kernels")
     rate_timing = phase_rate_timing(dev)
 
     if "--kernels-only" in sys.argv[1:]:
         log(f"  kernels only: {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    log("[5] UNet, tau-leap and LBJF steps, card vs CPU")
+    stage("[5] UNet, tau-leap and LBJF steps, card vs CPU")
     phase_unet(dev)
 
-    log("[6] TauL step breakdown")
+    stage("[6] TauL step breakdown")
     breakdown = phase_step_breakdown(
         dev, full_cfg(fused=True), {"fused_kernel_ms": "fused_tau_leap"})
 
-    log("[10] LBJF step breakdown")
+    stage("[10] LBJF step breakdown")
     lbjf_breakdown = phase_step_breakdown(
         dev, full_cfg(fused=False, sampler="LBJF"),
         {"reverse_rates_kernel_ms": "reverse_rates_kernel",
          "euler_posterior_kernel_ms": "euler_posterior_kernel"})
 
     with tempfile.TemporaryDirectory() as tmpdir:
-        log("[7] serving: the flagship, fused TauL")
+        stage("[7] serving: the flagship, fused TauL")
         launches, elapsed = phase_serving(dev, tmpdir)
-        log("[11] serving: LBJF with a corrector, MidPointTauL, maze")
+        stage("[11] serving: LBJF with a corrector, MidPointTauL, maze")
         served = phase_serving_slice2(dev, tmpdir)
-        log("[12] training: the flagship at full width, and serving what it trained")
+        stage("[12] training: the flagship at full width, and serving what it trained")
         data_path = mnist_like(f"{tmpdir}/mnist_like.npz")
         log("  (a) one step, card vs CPU")
         step_check = phase_train_step(dev, data_path)
         log("  (b) train() 100 steps with the in-loop grid, (c) resume, (d) serve")
         trained = phase_training(dev, tmpdir, data_path)
-        log("[13] scoring: the eval and bench CLIs")
+        stage("[13] scoring: the eval and bench CLIs")
         log("  (a) InceptionV3, card vs CPU")
         npz = random_inception_npz(f"{tmpdir}/inception_random.npz")
         inception = phase_inception(dev, npz, data_path)
-        log("  (b) mlp_synthetic trained by the train CLI, its MMD by the eval CLI")
-        mmd = phase_mmd(dev, tmpdir)
-        log("  (c) FID of the flagship trained in [12]")
-        fid = phase_fid(trained["checkpoints"], data_path, npz)
+        log("  (b) mlp_synthetic trained by the train CLI, its MMD by the eval CLI, beside "
+            "(c) the FIDs of the flagship trained in [12] (at once since phase [16] came: "
+            "their wall times are not figures)")
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as pool:
+            mmd_run = pool.submit(phase_mmd, dev, tmpdir)
+            fid = phase_fid(trained["checkpoints"], data_path, npz)
+            mmd = mmd_run.result()
         log(f"  (d) the bench CLI at {BENCH_STEPS} sampler steps")
         bench = phase_bench(BENCH_STEPS)
-        log("[14] the SDDM hollow family at full width, and the flagship's bf16 compute")
+        stage("[14] the SDDM hollow family at full width, and the flagship's bf16 compute")
         hollow = phase_hollow(dev, tmpdir, data_path, trained["record"])
-        log("[15] the maze, sudoku and protein presets: data generators, DDSM networks, "
-            "the fresh-pool stream, determinism")
-        maze_sudoku = phase_maze_sudoku(dev, tmpdir, data_path)
+        stage("[15] the maze, sudoku and protein presets: data generators, DDSM networks, "
+            "the fresh-pool stream")
+        maze_sudoku, pools = phase_maze_sudoku(dev, tmpdir, data_path)
+        stage("[16] the rest of the samplers, the EBM and the prefix-conditional path; "
+            "determinism of train()")
+        slice8 = phase_slice8(dev, tmpdir, data_path, pools)
 
     by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
@@ -2297,7 +2876,16 @@ def main() -> int:
                   f"hollow_maze trained {FAMILY_STEPS} steps n=16":
                       maze_sudoku["family"]["hollow_maze"]["served_launches"],
                   "hollow_protein sampled n=16":
-                      maze_sudoku["family"]["hollow_protein"]["sampled_launches"]}
+                      maze_sudoku["family"]["hollow_protein"]["sampled_launches"],
+                  **{f"tauUnet_mnist {name} n=16 {PC_STEPS} steps, corrector": r["launches"]
+                     for name, r in slice8["pc_samplers"].items()},
+                  f"eval cond_mmd pianoroll_cond {COND_SAMPLES}":
+                      slice8["pianoroll_cond"]["cond_mmd"]["kernel_launches"],
+                  f"pianoroll_cond ConditionalLBJF n={COND_LBJF_BATCH}":
+                      slice8["pianoroll_cond"]["conditional_lbjf"]["launches"],
+                  **{f"eval mmd ebm_synthetic {name} {EBM_ROUNDS}x{EBM_SAMPLES}":
+                     res["kernel_launches"]
+                     for name, res in slice8["ebm_synthetic"]["mmd"].items()}}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -2324,10 +2912,13 @@ def main() -> int:
 
     rr, ep = rate_timing["reverse_rates"], rate_timing["euler_posterior"]
 
-    def sudoku_shape(t):
-        return dict(sudoku_shape=t["shape"], sudoku_ms=t["ms"], sudoku_loop_ms=t["loop_ms"],
-                    sudoku_plain_ms=t["plain_ms"], sudoku_bound_ms=t["bound_ms"],
-                    sudoku_bound_by=t["bound_by"])
+    def shapes(timings):
+        """The named shapes' times (sudoku's, pianoroll_cond's, the EBM's)."""
+        return {f"{key}_{field}": timings[key][src]
+                for key in ("sudoku", "pianoroll", "ebm")
+                for field, src in (("shape", "shape"), ("ms", "ms"), ("loop_ms", "loop_ms"),
+                                   ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                                   ("bound_by", "bound_by"))}
 
     record = {"kernels": [
         entry("fused_tau_leap_update", "ctdd_tpu_torch/csrc/fused_tau_leap.cu",
@@ -2337,12 +2928,10 @@ def main() -> int:
               expected_jumps_per_row=timing[256]["expected_jumps_per_row"]),
         entry("reverse_rates", "ctdd_tpu_torch/csrc/reverse_rates.cu",
               "ctdd_tpu/ops/pallas_kernels.py:81", rate_err["rate_abs"],
-              rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"],
-              **sudoku_shape(rr["sudoku"])),
+              rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"], **shapes(rr)),
         entry("euler_posterior", "ctdd_tpu_torch/csrc/euler_posterior.cu",
               "ctdd_tpu/ops/pallas_kernels.py:137", rate_err["post_prob"],
-              ep[256], ep[16], max_log_err=rate_err["post_log"],
-              **sudoku_shape(ep["sudoku"])),
+              ep[256], ep[16], max_log_err=rate_err["post_log"], **shapes(ep)),
     ]}
     for k in record["kernels"]:
         if k["launches"] <= 0:
@@ -2362,6 +2951,7 @@ def main() -> int:
                                   "bench": bench, "card": card_line()}))
     log("hollow: " + json.dumps({**hollow, "card": card_line()}))
     log("maze_sudoku_protein: " + json.dumps({**maze_sudoku, "card": card_line()}))
+    log("slice8: " + json.dumps({**slice8, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

@@ -7,7 +7,7 @@ with the same metric name, unit and `extras` keys:
   tau-leap kernel, 3 runs after a warm-up run; `plain_samples_per_sec` the
   same without it;
 - `ctelbo_train_steps_per_sec`: CTElbo train steps/s at the preset's batch
-  (64), 10 steps after one, with cuDNN deterministic as `train()` runs;
+  (64), 10 steps after one, deterministic as `train()` runs;
 - `bf16_train_steps_per_sec`: the same step with `model.compute_dtype =
   "bfloat16"` (float32 weights, bf16 convolutions and Dense layers), on the
   same initial weights and batch; `bf16_train_mfu` over the float32 step's
@@ -117,7 +117,7 @@ def main(argv=None):
     from ctdd_tpu_torch.training.optimizers import get_optimizer
     from ctdd_tpu_torch.training.state import create_train_state
     from ctdd_tpu_torch.training.train_step import make_train_step
-    from ctdd_tpu_torch.utils.device import deterministic_cudnn, resolve_device
+    from ctdd_tpu_torch.utils.device import deterministic_training, resolve_device
 
     device = resolve_device(args.device)
     cfg = apply_overrides(get_preset(args.preset), parse_overrides(args.set))
@@ -138,12 +138,12 @@ def main(argv=None):
 
     def train_rate(train_model) -> tuple:
         """(FLOPs of one step, steps/s over N_TRAIN steps after it), with
-        cuDNN deterministic as `train()` runs it."""
+        cuDNN and attention deterministic as `train()` runs it."""
         state = create_train_state(
             {k: v.detach().clone() for k, v in model.net.named_parameters()}, tx)
         step = make_train_step(train_model, get_loss(cfg), tx,
                                ema_decay=float(cfg.model.ema_decay))
-        with deterministic_cudnn(device):
+        with deterministic_training(device):
             flops, (state, _) = counted_flops(lambda: step(state, batch, 10))
             _sync(device)
             t0 = time.perf_counter()

@@ -21,6 +21,8 @@ class Config:
             self[k] = v
 
     def __getattr__(self, name: str) -> Any:
+        if name == "_d":  # a copy under construction (copy, pickle) has none yet
+            raise AttributeError(name)
         try:
             return self._d[name]
         except KeyError:

@@ -32,6 +32,8 @@ _PRESETS = {
     "protein_maze": "ctdd_tpu_torch.config.presets.maze_protein",
     "hollow_protein": "ctdd_tpu_torch.config.presets.protein_hollow",
     "sudoku": "ctdd_tpu_torch.config.presets.sudoku",
+    "ebm_synthetic": "ctdd_tpu_torch.config.presets.synthetic_ebm",
+    "pianoroll_cond": "ctdd_tpu_torch.config.presets.pianoroll_conditional",
 }
 
 

@@ -1,7 +1,8 @@
 """Carry flax weights across into the port's state dicts: the UNet
 (`unet_params_from_flax`), the residual MLP (`mlp_params_from_flax`), the
-hollow family (`hollow_params_from_flax`), the DDSM score networks
-(`ddsm_params_from_flax`), the FID
+hollow family and the EBM score functions (`hollow_params_from_flax`), the
+DDSM score networks (`ddsm_params_from_flax`), the sequence transformer
+(`sequence_transformer_params_from_flax`), the FID
 feature nets (`inception_params_from_flax`, `lenet_params_from_flax`,
 `classifier_params_from_flax`); and a whole JAX train state of the UNet
 (`train_state_from_flax`).
@@ -190,8 +191,9 @@ def mlp_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
 def hollow_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
     """flax params of a hollow-family wrapper (`HollowTransformerWrapper`,
     `HollowLogisticsWrapper`, `EnumerativeTransformerWrapper`,
-    `BertEnumTransformerWrapper`) -> the state dict of the port's `net` of
-    the same config. Raises on a leaf that is missing, left over or of the
+    `BertEnumTransformerWrapper`, `PrefixConditionalBidirTransformer`) or an
+    EBM score function (`networks/ebm.py`) -> the state dict of the port's
+    `net` of the same config. Raises on a leaf that is missing, left over or of the
     wrong shape."""
     import torch.nn as nn
 
@@ -214,6 +216,19 @@ def hollow_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
         return module, kind, path[-1]
 
     return _state_dict_from_flax(tree, net, port_name)
+
+
+def sequence_transformer_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax `SequenceTransformer` params -> the state dict of the port's
+    `net` of the same config: the hollow family's mapping, with the
+    time-embedding MLP's `Dense_i` as the shared `TimeEmbedMLP`'s
+    `dense_i`."""
+
+    def renamed(tree):
+        return {k: ({c.lower(): w for c, w in v.items()} if k == "TimeEmbedMLP_0" else v)
+                for k, v in tree.items()}
+
+    return hollow_params_from_flax(renamed(tree), net)
 
 
 def ddsm_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,13 @@
-"""Image datasets: DiscreteMNIST.
+"""Image datasets: DiscreteMNIST; and LakhPianoroll.
 
 Counterpart of DiscreteMNIST in ctdd_tpu/data/images.py. It reads the npz
 at cfg.data.location (`x_train`/`y_train` or `images`/`labels`, uint8
 images). With no npz there, it falls back to sklearn's 8x8 digits upsampled
 to the image size where sklearn is installed, as the JAX package does, and
-otherwise raises and names the missing file. The other image datasets are
-ported in a later slice.
+otherwise raises and names the missing file. LakhPianoroll reads its (N, L)
+npy, or makes the seeded stand-in of data/pianoroll.py where the file is
+absent, as the JAX package does. The other image datasets are ported in a
+later slice.
 """
 
 from __future__ import annotations
@@ -67,3 +69,18 @@ def discrete_mnist(cfg, root: Optional[str] = None) -> ArrayDataset:
         imgs = np.repeat(np.repeat(imgs, reps, axis=1), reps, axis=2)[:, :size, :size]
     data = imgs[:, None, :, :].astype(np.uint8)  # (N, 1, H, W)
     return ArrayDataset(data, np.asarray(labels).astype(np.int32))
+
+
+@registry.datasets.register(name="LakhPianoroll")
+def lakh_pianoroll(cfg, root: Optional[str] = None) -> ArrayDataset:
+    """(N, L) int32: the npy at cfg.data.location, else the stand-in of
+    `data.num_samples` rows (8192 by default) from `data.seed` (0)."""
+    path = root or cfg.data.location
+    if path and os.path.isfile(path):
+        return ArrayDataset(np.load(path).astype(np.int32))
+    from ctdd_tpu_torch.data.pianoroll import generate_standin
+
+    data = generate_standin(int(cfg.data.get("num_samples", 8192)),
+                            length=int(cfg.data.shape[0]),
+                            seed=int(cfg.data.get("seed", 0)))
+    return ArrayDataset(data)

@@ -16,10 +16,13 @@ Metrics: mmd, fid (features: inception with weights from
 `--inception-weights` or $CTDD_INCEPTION_NPZ, else the seeded random-conv
 "lenet" net with a warning; or "trained", a classifier trained on the eval
 dataset; `--fid-levels` adds real vs real and noise in the same features),
-maze_acc, sudoku_acc, save_samples. `cond_mmd`, `--label` and
-`--cfg-scale`, and D3PM checkpoints need modules of later slices and raise
-NotImplementedError. The last line of the output is one JSON object: the
-metric, its value, and the launches of each hand-written kernel.
+maze_acc, sudoku_acc, cond_mmd (a prefix-conditional sampler's samples
+given ground-truth prefixes, beside the data-vs-data floor and the
+shuffled-suffix anchor; on LakhPianoroll also `scale_consistency` and the
+rest fractions), save_samples. `--label` and `--cfg-scale`, and D3PM
+checkpoints need modules of later slices and raise NotImplementedError.
+The last line of the output is one JSON object: the metric, its value, and
+the launches of each hand-written kernel.
 """
 
 from __future__ import annotations
@@ -50,10 +53,6 @@ def _checkpoint_path(ckpt: str, step) -> str:
 
 
 def _refuse_unported(args, cfg):
-    if args.metric == "cond_mmd":
-        raise NotImplementedError(
-            "--metric cond_mmd needs the conditional samplers (ROADMAP queue A, "
-            "the conditional path), ported in a later slice")
     if args.label is not None or args.cfg_scale:
         raise NotImplementedError(
             "--label/--cfg-scale need a label-conditional model (DiT, ROADMAP "
@@ -64,23 +63,82 @@ def _refuse_unported(args, cfg):
             "ported in a later slice")
 
 
-def _batched(sample_fn, batch: int, device):
-    """sample_fn(generator, n) in batches of `batch`; batch i draws from a
-    generator seeded by SeedSequence([base, i]), base drawn from the
-    caller's generator."""
+def _batches(generator, n: int, batch: int, device):
+    """(start, size, generator) of each batch of `batch` out of n; batch i
+    draws from a generator seeded by SeedSequence([base, i]), base drawn from
+    the caller's generator."""
     import torch
 
+    base = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device).item())
+    for i, start in enumerate(range(0, n, batch)):
+        seed = np.random.SeedSequence([base, i]).generate_state(1, np.uint64)[0]
+        gen = torch.Generator(device=device).manual_seed(int(seed & 0x7FFFFFFFFFFFFFFF))
+        yield start, min(batch, n - start), gen
+
+
+def _batched(sample_fn, batch: int, device):
+    """sample_fn(generator, n) in batches of `batch` (`_batches`)."""
+
     def fn(generator, n):
-        base = int(torch.randint(0, 2**62, (1,), generator=generator,
-                                 device=generator.device).item())
-        outs = []
-        for i, start in enumerate(range(0, n, batch)):
-            seed = np.random.SeedSequence([base, i]).generate_state(1, np.uint64)[0]
-            gen = torch.Generator(device=device).manual_seed(int(seed & 0x7FFFFFFFFFFFFFFF))
-            outs.append(sample_fn(gen, min(batch, n - start)))
-        return np.concatenate(outs, axis=0)
+        return np.concatenate([sample_fn(gen, size)
+                               for _, size, gen in _batches(generator, n, batch, device)],
+                              axis=0)
 
     return fn
+
+
+def _cond_mmd(args, cfg, sampler, model, generator, device) -> dict:
+    """Conditional generation: n ground-truth prefixes, the sampler's
+    suffixes, and the categorical exp-Hamming MMD of (prefix ⊕ suffix)
+    against n other ground-truth sequences, with a median-heuristic
+    bandwidth (ln 2 over the median distance of two ground-truth sets), beside
+    the data-vs-data floor and the anchor of ground truth with its suffixes
+    shuffled across rows. On LakhPianoroll also the share of suffix notes in
+    the key of the prefix (`scale_consistency`) and the rest fractions."""
+    from ctdd_tpu_torch.data.loaders import get_dataset
+    from ctdd_tpu_torch.metrics.mmd import categorical_exp_hamming_mmd
+
+    dataset = get_dataset(cfg)
+    cond_dim = int(cfg.sampler.condition_dim)
+    n = args.samples
+    if len(dataset.data) < 3 * n:
+        sys.exit(f"cond_mmd needs >= 3*samples rows ({3 * n}); dataset has "
+                 f"{len(dataset.data)}")
+    rng = np.random.RandomState(args.seed)
+    idx = rng.choice(len(dataset.data), size=3 * n, replace=False)
+    gt_a, gt_b, gt_c = (np.asarray(dataset.data[idx[k * n:(k + 1) * n]]) for k in range(3))
+    gen = np.concatenate([
+        sampler.sample(model, model.net, g, N=m, conditioner=gt_a[start:start + m, :cond_dim])
+        for start, m, g in _batches(generator, n, args.batch or n, device)], axis=0)
+    shuffled = gt_a.copy()
+    shuffled[:, cond_dim:] = gt_a[rng.permutation(n), cond_dim:]
+    d_med = np.median((gt_b[:, None, :] != gt_c[None, :, :]).sum(axis=-1))
+    bd = float(np.log(2.0) / max(d_med, 1.0))
+
+    def mmd(x):
+        return float(categorical_exp_hamming_mmd(x, gt_b, bd))
+
+    out = dict(value=mmd(gen), floor=mmd(gt_c), shuffled=mmd(shuffled), bandwidth=bd,
+               n_samples=n, condition_dim=cond_dim)
+    print(f"cond_mmd: model={out['value']:.6f} floor(gt-vs-gt)={out['floor']:.6f} "
+          f"shuffled-suffix={out['shuffled']:.6f} "
+          f"[n={n} cond_dim={cond_dim} bandwidth={bd:.5f}]")
+    if cfg.data.name == "LakhPianoroll":
+        from ctdd_tpu_torch.data.pianoroll import REST, scale_consistency
+
+        out.update(
+            scale_consistency=scale_consistency(gen, cond_dim),
+            gt_scale_consistency=scale_consistency(gt_b, cond_dim),
+            shuffled_scale_consistency=scale_consistency(shuffled, cond_dim),
+            model_rest_frac=float((gen[:, cond_dim:] >= REST).mean()),
+            gt_rest_frac=float((gt_b[:, cond_dim:] >= REST).mean()))
+        print(f"scale_consistency: model={out['scale_consistency']:.4f} "
+              f"gt={out['gt_scale_consistency']:.4f} "
+              f"shuffled={out['shuffled_scale_consistency']:.4f} "
+              f"model_rest_frac={out['model_rest_frac']:.4f} "
+              f"gt_rest_frac={out['gt_rest_frac']:.4f}")
+    return out
 
 
 def _fid(args, cfg, sample_fn, generator, device) -> dict:
@@ -260,6 +318,8 @@ def main(argv=None):
         acc = maze_acc(sample_fn(generator, args.samples))
         print(f"maze_acc: {acc:.4f}")
         result.update(value=acc, n_samples=args.samples)
+    elif args.metric == "cond_mmd":
+        result.update(_cond_mmd(args, cfg, sampler, model, generator, device))
     elif args.metric == "sudoku_acc":
         from ctdd_tpu_torch.data.sudoku import sudoku_acc
 

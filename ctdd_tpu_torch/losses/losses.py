@@ -1,14 +1,13 @@
 """Training losses: the tauLDR family (CTElbo, NLL, CTElboLambda,
-NLLOriginal), the SDDM ELBOs (SDDMElbo, ScoreElbo) and categorical ratio
-matching (CatRM, CatRMNLL).
+NLLOriginal), the prefix-conditional CondCTElbo and CondNLL, the SDDM ELBOs
+(SDDMElbo, ScoreElbo), categorical ratio matching (CatRM, CatRMNLL) and the
+energy-based EBMAux and BinEBMAux.
 
-Counterpart of those losses in ctdd_tpu/losses/losses.py. Each is a
-function of (model, params, generator, batch): the generator draws the
-times, x_t and x̃ where JAX splits a key, and dropout draws from the
-device's default generator (the train step seeds it). The (B, D, S) x
-(B, S, S) products are `torch.einsum`, as the JAX package keeps them
-outside any Pallas kernel. The conditional (CondCTElbo, CondNLL) and EBM
-losses are ported with their networks in a later slice.
+Counterpart of ctdd_tpu/losses/losses.py. Each is a function of (model,
+params, generator, batch): the generator draws the times, x_t and x̃ where
+JAX splits a key, and dropout draws from the device's default generator
+(the train step seeds it). The (B, D, S) x (B, S, S) products are
+`torch.einsum`, as the JAX package keeps them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -79,21 +78,28 @@ def _ctelbo_terms(model, params, generator, x0, ts, eps, one_forward_pass, train
     """neg_elbo (scalar) and the training-pass logits.
 
     `samples` optionally injects (x_t, x_tilde); `ts` is the caller's."""
-    B, D = x0.shape
     qt0 = model.transition(ts)  # (B, S, S)
     rate = model.rate(ts)  # (B, S, S)
-    S = qt0.shape[-1]
-
     if samples is None:
         x_t, x_tilde = sample_xt_xtilde(generator, qt0, rate, x0)
     else:
         x_t, x_tilde = samples
 
-    # -- regularizer term ----------------------------------------------------
     x_logits = model.apply(params, x_t, ts, train=train)
     p0t_reg = torch.softmax(x_logits, dim=-1)
+    if one_forward_pass:
+        p0t_sig = p0t_reg
+    else:
+        p0t_sig = torch.softmax(model.apply(params, x_tilde, ts, train=train), dim=-1)
     reg_x = x_tilde if one_forward_pass else x_t
+    return _neg_elbo(qt0, rate, x0, reg_x, x_tilde, p0t_reg, p0t_sig, eps), x_logits
 
+
+def _neg_elbo(qt0, rate, x0, reg_x, x_tilde, p0t_reg, p0t_sig, eps):
+    """The CT-ELBO's regularizer (at `reg_x`, with p0t_reg) and signal (at
+    x̃, with p0t_sig) terms, each averaged over the batch, summed."""
+    S = qt0.shape[-1]
+    # -- regularizer term ----------------------------------------------------
     mask_reg = indexing.onehot_mask(reg_x, S)  # (B, D, S)
     qt0_denom_reg = indexing.cols(qt0, reg_x) + eps  # q_{t|0}(x̃ | ·) columns
     rate_vals_reg = indexing.cols(rate, reg_x)
@@ -102,11 +108,6 @@ def _ctelbo_terms(model, params, generator, x0, ts, eps, one_forward_pass, train
     reg_term = torch.sum((p0t_reg / qt0_denom_reg) * reg_tmp, dim=(1, 2))  # (B,)
 
     # -- signal term ---------------------------------------------------------
-    if one_forward_pass:
-        p0t_sig = p0t_reg
-    else:
-        p0t_sig = torch.softmax(model.apply(params, x_tilde, ts, train=train), dim=-1)
-
     qt0_denom_sig = indexing.cols(qt0, x_tilde) + eps
     inner_log_sig = torch.log(
         torch.einsum("bds,bsk->bdk", p0t_sig / qt0_denom_sig, qt0) + eps
@@ -140,7 +141,7 @@ def _ctelbo_terms(model, params, generator, x0, ts, eps, one_forward_pass, train
 
     sig_mean = torch.mean(-outer_sum_sig / sig_norm)
     reg_mean = torch.mean(reg_term)
-    return sig_mean + reg_mean, x_logits
+    return sig_mean + reg_mean
 
 
 def _no_label(loss, label):
@@ -238,6 +239,93 @@ class CTElboLambda:
         )
         w = n_iter / self.n_iters
         return w * neg_elbo + (1.0 - w) * mean_cross_entropy(x_logits, x0)
+
+
+# ---------------------------------------------------------------------------
+# prefix-conditional losses (the first condition_dim dims are clean)
+# ---------------------------------------------------------------------------
+
+
+def _cond_corrupt(model, generator, minibatch, min_time: float, condition_dim: int,
+                  ts=None, samples=None):
+    """(cond, data, ts, qt0, rate, x_t, x̃): the clean prefix and the suffix
+    with its times, tables and draws; `ts` and `samples` (x_t, x̃) may be
+    injected, else they are drawn from `generator`."""
+    x0_full = _flatten_batch(minibatch)
+    cond, data = x0_full[:, :condition_dim], x0_full[:, condition_dim:]
+    if ts is None:
+        ts = _sample_ts(generator, x0_full.shape[0], min_time, 1.0)
+    qt0, rate = model.transition(ts), model.rate(ts)
+    x_t, x_tilde = samples if samples is not None else sample_xt_xtilde(
+        generator, qt0, rate, data)
+    return cond, data, ts, qt0, rate, x_t, x_tilde
+
+
+@registry.losses.register
+class CondCTElbo:
+    """CTElbo of the suffix given the clean prefix, + nll_weight·CE; the
+    network sees [prefix | x̃] (or [prefix | x_t] without
+    `one_forward_pass`) in one pass."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.ratio_eps = cfg.loss.eps_ratio
+        self.nll_weight = cfg.loss.nll_weight
+        self.min_time = cfg.loss.min_time
+        self.one_forward_pass = cfg.loss.one_forward_pass
+        self.condition_dim = cfg.loss.condition_dim
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True, ts=None, samples=None):
+        """`ts` and `samples` (x_t, x̃) may be injected."""
+        _no_label(self, label)
+        cond, data, ts, qt0, rate, x_t, x_tilde = _cond_corrupt(
+            model, generator, minibatch, self.min_time, self.condition_dim, ts, samples)
+        reg_x = x_tilde if self.one_forward_pass else x_t
+        logits_full = model.apply(params, torch.cat([cond, reg_x], dim=1), ts, train=train)
+        x_logits = logits_full[:, self.condition_dim:, :]
+        p0t = torch.softmax(x_logits, dim=-1)  # the signal term shares the pass
+        neg_elbo = _neg_elbo(qt0, rate, data, reg_x, x_tilde, p0t, p0t, self.ratio_eps)
+        return neg_elbo + self.nll_weight * mean_cross_entropy(x_logits, data)
+
+
+@registry.losses.register
+class CondNLL:
+    """The CE of the suffix logits against the clean suffix, under
+    CondCTElbo's corruption and pass. With `loss.aux_key_weight` > 0 (and
+    the network's `aux_key_head`) it adds that weight times the CE of the
+    key logits at suffix positions against the key inferred from the clean
+    prefix (`data.pianoroll.infer_key_torch`)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+        self.one_forward_pass = cfg.loss.one_forward_pass
+        self.condition_dim = cfg.loss.condition_dim
+        self.aux_key_weight = float(cfg.loss.get("aux_key_weight", 0.0))
+        if self.aux_key_weight > 0.0 and not int(cfg.model.get("aux_key_classes", 0)):
+            raise ValueError(
+                "loss.aux_key_weight > 0 requires model.aux_key_classes > 0 "
+                "(the SequenceTransformer aux head)")
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True, ts=None, samples=None):
+        """`ts` and `samples` (x_t, x̃) may be injected."""
+        _no_label(self, label)
+        cond, data, ts, _, _, x_t, x_tilde = _cond_corrupt(
+            model, generator, minibatch, self.min_time, self.condition_dim, ts, samples)
+        model_in = torch.cat([cond, x_tilde if self.one_forward_pass else x_t], dim=1)
+        if self.aux_key_weight <= 0.0:
+            logits_full = model.apply(params, model_in, ts, train=train)
+            return mean_cross_entropy(logits_full[:, self.condition_dim:, :], data)
+        from ctdd_tpu_torch.data.pianoroll import infer_key_torch
+
+        logits_full, key_logits = model.apply(params, model_in, ts, train=train,
+                                              return_aux=True)
+        suffix_keys = key_logits[:, self.condition_dim:, :]
+        key_label = infer_key_torch(cond)[:, None].expand(suffix_keys.shape[:2])
+        return (mean_cross_entropy(logits_full[:, self.condition_dim:, :], data)
+                + self.aux_key_weight * mean_cross_entropy(suffix_keys, key_label))
 
 
 # ---------------------------------------------------------------------------
@@ -398,3 +486,90 @@ class CatRMNLL(_CatRMBase):
                   train=True):
         x0, logits, rm = self._terms(model, params, generator, minibatch, label, train)
         return rm + self.nll_weight * mean_cross_entropy(logits, x0)
+
+
+
+# ---------------------------------------------------------------------------
+# energy-based models (the network returns one energy per row)
+# ---------------------------------------------------------------------------
+
+
+def ebm_all_mutation_logits(model, params, xt, ts, S: int, train: bool = False):
+    """(B, D, S) logits: logits[b, d, s] is the energy of xt[b] with dim d
+    set to s; one forward over the D·S·B mutated rows."""
+    B, D = xt.shape
+    mask = torch.eye(D, dtype=xt.dtype, device=xt.device)  # (D, D)
+    cand = torch.arange(S, dtype=xt.dtype, device=xt.device)
+    # xall[d, s, b] = xt[b] with dim d replaced by s
+    xall = (mask[:, None, None, :] * cand[None, :, None, None]
+            + (1 - mask)[:, None, None, :] * xt[None, None, :, :])  # (D, S, B, D)
+    t_all = ts[None, None, :].expand(D, S, B).reshape(-1)
+    energies = model.apply(params, xall.reshape(D * S * B, D), t_all, train=train)
+    return energies.reshape(D, S, B).permute(2, 0, 1)
+
+
+def bin_ebm_flip_logits(model, params, xt, ts, train: bool = False):
+    """Binary EBM logits (B, D, 2): the energy of xt[b] at s == xt[b, d],
+    else that of xt[b] with bit d flipped; one forward over the (D+1)·B rows
+    [xt | its D single-bit flips]."""
+    B, D = xt.shape
+    mask = torch.eye(D, dtype=xt.dtype, device=xt.device)[:, None, :]  # (D, 1, D)
+    # xneg[d, b] = xt[b] with bit d flipped (states {0, 1})
+    xneg = (mask - xt[None]) * mask + (1 - mask) * xt[None]  # (D, B, D)
+    rows = torch.cat([xt, xneg.reshape(D * B, D)], dim=0)
+    t_all = ts[None, :].expand(D + 1, B).reshape(-1)
+    energies = model.apply(params, rows, t_all, train=train)
+    qxt, qxneg = energies[:B], energies[B:].reshape(D, B).t()  # (B,), (B, D)
+    xt_onehot = torch.nn.functional.one_hot(xt.long(), 2).to(energies.dtype)
+    return xt_onehot * qxt[:, None, None] + (1.0 - xt_onehot) * qxneg[..., None]
+
+
+def _ebm_draws(model, generator, x0, min_time: float, ts=None, samples=None):
+    """(ts, x_t) of the EBM losses, times clamped below 1; either may be
+    injected."""
+    if ts is None:
+        ts = _sample_ts(generator, x0.shape[0], min_time, 1.0, clamp_hi=0.99999)
+    if samples is None:
+        return ts, sample_xt(generator, model.transition(ts), x0)
+    return ts, samples[0]
+
+
+@registry.losses.register
+class EBMAux:
+    """Energy-based ratio matching over all D·S single-site mutations:
+    -Σ_d log softmax_s(logits)[x_t] averaged over the batch."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+        self.S = cfg.data.S
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True, ts=None, samples=None):
+        """`ts` and `samples` (x_t,) may be injected."""
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts, xt = _ebm_draws(model, generator, x0, self.min_time, ts, samples)
+        logits = ebm_all_mutation_logits(model, params, xt, ts, self.S, train=train)
+        ll_xt = torch.gather(torch.log_softmax(logits, dim=-1), -1, xt.long()[..., None])
+        return torch.mean(-torch.sum(ll_xt[..., 0], dim=-1))
+
+
+@registry.losses.register
+class BinEBMAux:
+    """Binary EBM ratio matching over the D single-bit flips: -Σ ll_xt / B
+    under `loss.logit_type`."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True, ts=None, samples=None):
+        """`ts` and `samples` (x_t,) may be injected."""
+        _no_label(self, label)
+        x0 = _flatten_batch(minibatch)
+        ts, xt = _ebm_draws(model, generator, x0, self.min_time, ts, samples)
+        logits = bin_ebm_flip_logits(model, params, xt, ts, train=train)
+        _, ll_xt = logprob_with_logits(self.cfg.loss.logit_type, model, xt, ts, logits)
+        return torch.sum(-ll_xt) / x0.shape[0]

@@ -34,15 +34,19 @@ class DiffusionModel:
     def apply(
         self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
         x: torch.Tensor, t: torch.Tensor, train: bool = False,
+        return_aux: bool = False,
     ) -> torch.Tensor:
         """Network forward -> (B, D, S) logits; `train` turns dropout on,
-        as the JAX package's `apply(train=True)` does."""
+        as the JAX package's `apply(train=True)` does. `return_aux` asks a
+        network with an auxiliary head (the SequenceTransformer's key head)
+        for (logits, aux); only losses pass it."""
         net = params if isinstance(params, nn.Module) else self.net
         if net.training != train:
             net.train(train)
+        kwargs = {"return_aux": True} if return_aux else {}
         if isinstance(params, nn.Module):
-            return params(x, t)
-        return torch.func.functional_call(self.net, dict(params), (x, t))
+            return params(x, t, **kwargs)
+        return torch.func.functional_call(self.net, dict(params), (x, t), kwargs)
 
     # -- forward process passthrough ----------------------------------------
     def rate(self, t):

@@ -2,9 +2,10 @@
 
 Counterpart of ctdd_tpu/models/zoo.py, for the entries built on the UNet
 wrapper (`_unet_paul`), the residual MLP (`_residual_mlp`), the hollow
-family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`) and the DDSM
-score networks (`_sudoku`, `_protein`). Registered names match the JAX zoo
-so its configs resolve unchanged.
+family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`), the DDSM
+score networks (`_sudoku`, `_protein`), the sequence transformer
+(`_sequence_transformer`) and the binary transformer EBM (`_binary_ebm`).
+Registered names match the JAX zoo so its configs resolve unchanged.
 """
 
 from __future__ import annotations
@@ -54,6 +55,28 @@ def _bert_enum(cfg):
     return BertEnumTransformerWrapper(cfg)
 
 
+def _sequence_transformer(cfg):
+    from ctdd_tpu_torch.networks.transformer import SequenceTransformer
+
+    m = cfg.model
+    return SequenceTransformer(
+        S=cfg.data.S, num_layers=m.num_layers, d_model=m.d_model,
+        num_heads=m.num_heads, dim_feedforward=m.dim_feedforward, dropout=m.dropout,
+        num_output_FFresiduals=m.num_output_FFresiduals,
+        time_scale_factor=m.time_scale_factor, temb_dim=m.temb_dim,
+        use_one_hot_input=m.use_one_hot_input, use_cat=m.get("use_cat", True),
+        max_len=cfg.data.shape[0],
+        scale_input_embedding=m.get("scale_input_embedding", False),
+        qk_norm=m.get("qk_norm", False), aux_key_classes=m.get("aux_key_classes", 0),
+    )
+
+
+def _binary_ebm(cfg):
+    from ctdd_tpu_torch.networks.ebm import BinaryTransformerScoreFunc
+
+    return BinaryTransformerScoreFunc(cfg)
+
+
 def _sudoku(cfg):
     from ctdd_tpu_torch.networks.ddsm import SudokuScoreNetWrapper
 
@@ -85,6 +108,9 @@ _ZOO = {
     "UniformBDTEMA":                          (_hollow, "UniformRate"),
     "UniVarScoreNetEMA":                      (_sudoku, "UniformVariantRate"),
     "UniVarProteinScoreNetEMA":               (_protein, "UniformVariantRate"),
+    "UniformRateSequenceTransformerEMA":      (_sequence_transformer, "UniformRate"),
+    "BirthDeathRateSequenceTransformerEMA":   (_sequence_transformer, "BirthDeathForwardBase"),
+    "UniVarBinaryEBMEMA":                     (_binary_ebm, "UniformVariantRate"),
 }
 
 

@@ -80,7 +80,7 @@ class TimeEmbedMLP(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         emb = timestep_embedding(t * self.time_scale_factor, self.temb_dim)
-        return self.dense_1(F.relu(self.dense_0(emb)))
+        return self.dense_1(F.relu(self.dense_0(emb.to(self.dense_0.weight.dtype))))
 
 
 def normalize_states(x: torch.Tensor, S: int) -> torch.Tensor:

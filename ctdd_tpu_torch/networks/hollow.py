@@ -9,6 +9,9 @@ Counterpart of ctdd_tpu/networks/hollow.py:
 - `BidirectionalTransformer`: both towers and a readout; the time embedding
   is an MLP over a half-width sinusoid (`nets` other than
   "bidir_transformer2") or the raw full-width sinusoid.
+  `PrefixConditionalBidirTransformer` runs both towers with the prefix's
+  embeddings before the time token and reads out the rest (it has no zoo
+  entry, in JAX neither).
 - Readouts: `ConcatReadout`, `ResidualReadout` (FiLM), `ConcatResidualReadout`
   and `AttentionReadout` over `CrossAttention`, whose keys are [t | l2r |
   r2l] under the joint causal / anti-causal key mask.
@@ -103,9 +106,12 @@ class MultiHeadDotProductAttention(nn.Module):
     """flax's self-attention: query/key/value/out projections (flax stores
     their kernels as (E, H, Dh) and (H, Dh, E); here they are Linear
     weights), softmax(q k / sqrt(Dh)) over the kept keys, dropout on the
-    attention weights when training."""
+    attention weights when training. `qk_norm` is flax's `normalize_qk`: a
+    LayerNorm without bias over each head's features of q and k
+    (`query_ln`, `key_ln`, one (Dh,) scale shared by the heads)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float):
+    def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float,
+                 qk_norm: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
@@ -113,16 +119,23 @@ class MultiHeadDotProductAttention(nn.Module):
         self.key = nn.Linear(embed_dim, embed_dim)
         self.value = nn.Linear(embed_dim, embed_dim)
         self.out = nn.Linear(embed_dim, embed_dim)
+        self.qk_norm = qk_norm
+        if qk_norm:
+            self.query_ln = nn.LayerNorm(embed_dim // num_heads, eps=LN_EPS, bias=False)
+            self.key_ln = nn.LayerNorm(embed_dim // num_heads, eps=LN_EPS, bias=False)
 
     def forward(self, x, keep=None):
         B, L, E = x.shape
         H = self.num_heads
 
-        def heads(t):
-            return t.reshape(B, L, H, E // H).transpose(1, 2)
+        def split(t):
+            return t.reshape(B, L, H, E // H)
 
+        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        if self.qk_norm:
+            q, k = self.query_ln(q), self.key_ln(k)
         o = F.scaled_dot_product_attention(
-            heads(self.query(x)), heads(self.key(x)), heads(self.value(x)),
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=keep, dropout_p=self.dropout_rate if self.training else 0.0)
         return self.out(o.transpose(1, 2).reshape(B, L, E))
 
@@ -182,7 +195,9 @@ class _Blocks(nn.Module):
 
     def __init__(self, m):
         super().__init__()
-        self.pos = PositionalEncoding(m.embed_dim, m.concat_dim + 2)
+        # a prefix-conditional tower runs over concat_dim + conditional_dim
+        self.pos = PositionalEncoding(m.embed_dim,
+                                      m.concat_dim + 2 + m.get("conditional_dim", 0))
         self.dropout = nn.Dropout(m.dropout_rate)
         self.num_layers = m.num_layers
         for i in range(m.num_layers):
@@ -210,14 +225,17 @@ class UniDirectionalTransformer(_Blocks):
             raise ValueError(direction)
         self.direction = direction
 
-    def forward(self, x, temb):
+    def forward(self, x, temb, conditioner=None):
+        """`conditioner` (B, P, E) goes before the time token: the towers
+        then run over L + P positions."""
         cond = temb[:, None, :]
-        L = x.shape[1]
+        if conditioner is not None:
+            cond = torch.cat([conditioner, cond], dim=1)
         if self.direction == "l2r":
             x = torch.cat([cond, x[:, :-1]], dim=1)
         else:
             x = torch.cat([x[:, 1:], cond], dim=1)
-        return self._run(x, _keep_mask(L, self.direction == "l2r", x.device))
+        return self._run(x, _keep_mask(x.shape[1], self.direction == "l2r", x.device))
 
 
 class ConcatReadout(nn.Module):
@@ -382,6 +400,28 @@ class BidirectionalTransformer(nn.Module):
         l2r = self.UniDirectionalTransformer_0(x_embed, temb)
         r2l = self.UniDirectionalTransformer_1(x_embed, temb)
         return getattr(self, self.readout_name)(l2r, r2l, temb)
+
+
+class PrefixConditionalBidirTransformer(BidirectionalTransformer):
+    """The first `model.conditional_dim` positions condition both towers
+    (their embeddings go before the time token); the readout spans the rest,
+    and the prefix positions get zero logits."""
+
+    def __init__(self, cfg, readout_dim=None):
+        super().__init__(cfg, readout_dim=readout_dim, learned_temb=True)
+        self.cond_dim = cfg.model.get("conditional_dim", 0)
+
+    def forward(self, x, t):
+        E, dt = self.m.embed_dim, _dtype(self)
+        temb = self.MLP_0(_sinusoid(t, self.m, E // 2, dt))
+        x_embed = self._InputEmbed_0(x)
+        conditioner = x_embed[:, :self.cond_dim]
+        n_data = x.shape[1] - self.cond_dim
+        l2r = self.UniDirectionalTransformer_0(x_embed, temb, conditioner)[:, -n_data:]
+        r2l = self.UniDirectionalTransformer_1(x_embed, temb, conditioner)[:, :n_data]
+        logits = getattr(self, self.readout_name)(l2r, r2l, temb)
+        dummy = logits.new_zeros((x.shape[0], self.cond_dim, logits.shape[-1]))
+        return torch.cat([dummy, logits], dim=1)
 
 
 class TransformerEncoderH(_Blocks):

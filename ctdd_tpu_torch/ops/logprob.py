@@ -31,6 +31,7 @@ def log_prob_from_logits(logit_type: str, logits: torch.Tensor,
     "reverse_logscale" materialises (B, D, S, S)."""
     if logit_type == LOGIT_DIRECT:
         return torch.log_softmax(logits, dim=-1)
+    qt0 = qt0.to(logits.dtype)  # float64 logits (a reference) keep float64
     shared = qt0.dim() == 2
     if logit_type == LOGIT_REVERSE_PROB:
         p0t = torch.softmax(logits, dim=-1)

@@ -1,22 +1,34 @@
-"""Reverse-CTMC samplers: TauL, LBJF, MidPointTauL.
+"""Reverse-CTMC samplers: TauL, TAULStepSize, LBJF, MidPointTauL, PCTauL,
+ExactSampling, the prefix-conditional ConditionalTauLeaping,
+ConditionalPCTauLeaping and ConditionalLBJF, and `lbjf_corrector_step`.
 
-Counterpart of those samplers in ctdd_tpu/sampling/samplers.py, correctors
-included. The JAX package scans a compiled step over a precomputed time
-grid; here the same step runs in an eager Python loop over the same float32
-grid.
+Counterpart of ctdd_tpu/sampling/samplers.py. The JAX package scans a
+compiled step over a precomputed time grid; here the same step runs in an
+eager Python loop over the same float32 grid.
 
 - TauL: with `sampler.use_fused_update` every step's update is one launch of
   the fused tau-leap kernel (ops/fused_update.py); otherwise reverse rates
-  (ops/rate_kernels.py) and Poisson jumps.
+  (ops/rate_kernels.py) and Poisson jumps. TAULStepSize is unfused TauL that
+  also returns per-step traces of the jump proposals.
 - LBJF: reverse rates, then the Euler posterior (both ops/rate_kernels.py)
   and a Gumbel-max categorical draw.
 - The reverse rates come from the p0t formula (the tauLDR losses) through
   the reverse-rates kernel, or from the network's log-probability ratios
-  (the SDDM/CRM losses, `rate_param="ratio"`) in plain torch; the Euler
-  posterior kernel runs on either.
+  (the SDDM/CRM/EBM losses, `rate_param="ratio"`) in plain torch; the Euler
+  posterior kernel runs on either. An EBM (`model.log_prob` "ebm" or
+  "bin_ebm") gives its per-dim logits through the mutation enumerators of
+  losses/losses.py.
 - MidPointTauL: fused, two launches of the fused kernel per step ("expected"
   over h/2, then "poisson" from the midpoint state); unfused, two
   reverse-rate passes.
+- PCTauL: the tauLDR predictor-corrector on its own grid, the corrector at
+  t - h with a step of `corrector_step_size_multiplier` * h.
+- ExactSampling: the exact bridge step through q_{t-h|0} and q_{t|t-h}, a
+  plain product and a Gumbel-max draw (no kernel: JAX's step is an einsum).
+- The conditional samplers hold the first `condition_dim` states at a clean
+  prefix; their p0t rates go through the reverse-rates kernel with the
+  shared (S, S) table, and ConditionalLBJF's update through the posterior
+  kernel.
 
 Randomness comes from an explicit `torch.Generator` on the model's device:
 it draws x_T, the uniforms and Gumbel noise of the unfused updates and, once
@@ -34,7 +46,7 @@ from ctdd_tpu_torch.ops import indexing, rate_kernels
 from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
 from ctdd_tpu_torch.ops.logprob import log_prob_from_logits, logprob_with_logits
 from ctdd_tpu_torch.utils.device import resolve_device
-from ctdd_tpu_torch.utils.math import gumbel_noise
+from ctdd_tpu_torch.utils.math import categorical, gumbel_noise, safe_log
 
 TAULDR_LOSSES = ("CTElbo", "NLL", "CTElboLambda", "NLLOriginal")
 
@@ -155,19 +167,29 @@ def poisson_inversion(generator, lam, max_k: int = 12, u=None):
 
 
 def _poisson_jump_update(generator, x, rates, h, S, is_ordinal: bool,
-                         exact_poisson: bool = False, u=None):
+                         exact_poisson: bool = False, u=None, traces=None):
     """Poisson tau-leap state update: summed ordinal offset, clamp to
-    [0, S-1]; non-ordinal mode rejects dims with >1 total jumps."""
+    [0, S-1]; non-ordinal mode rejects dims with >1 total jumps. A `traces`
+    dict receives the shares of dims that propose more than one jump
+    (`frac_multi`, before the rejection), a net move (`frac_jumped`) and a
+    move that survives the clamp (`frac_clipped`)."""
     if exact_poisson:
         jump_nums = torch.poisson(rates * h, generator=generator).to(torch.int32)
     else:
         jump_nums = poisson_inversion(generator, rates * h, u=u)
-    if not is_ordinal:
+    if traces is not None or not is_ordinal:
         jump_num_sum = torch.sum(jump_nums, dim=2)
+    if traces is not None:
+        traces["frac_multi"] = torch.mean((jump_num_sum > 1).float())
+    if not is_ordinal:
         jump_nums = jump_nums * (jump_num_sum <= 1)[:, :, None]
     diff = torch.arange(S, device=x.device, dtype=torch.int32)[None, None, :] - x[:, :, None]
-    overall_jump = torch.sum(jump_nums * diff, dim=2)
-    return torch.clamp(x + overall_jump, 0, S - 1).to(torch.int32)
+    xp = x + torch.sum(jump_nums * diff, dim=2)
+    x_new = torch.clamp(xp, 0, S - 1).to(torch.int32)
+    if traces is not None:
+        traces["frac_jumped"] = torch.mean((xp != x).float())
+        traces["frac_clipped"] = torch.mean((x_new != x).float())
+    return x_new
 
 
 def _categorical_euler_update(generator, x, rev_rates, h, g=None):
@@ -185,6 +207,13 @@ def _time_grid(max_t: float, min_t: float, num_steps: int):
     ts = np.concatenate((np.linspace(max_t, min_t, num_steps), np.array([0.0])))
     hs = ts[:-1] - ts[1:]
     return ts[:-1].astype(np.float32), hs.astype(np.float32)
+
+
+def _pc_time_grid(min_t: float, num_steps: int):
+    """The predictor-corrector grid: float64 linspace(1, min_t + 1/num_steps,
+    num_steps), its num_steps - 1 (t_k, h_k) pairs cast to float32."""
+    ts = np.linspace(1.0, min_t + 1.0 / num_steps, num_steps)
+    return ts[:-1].astype(np.float32), (ts[:-1] - ts[1:]).astype(np.float32)
 
 
 def _denoise_argmax(model, params, x, min_t, N):
@@ -209,17 +238,16 @@ class _SamplerBase:
         self.eps_ratio = cfg.sampler.eps_ratio
         self.num_corrector_steps = cfg.sampler.get("num_corrector_steps", 0)
         self.corrector_entry_time = cfg.sampler.get("corrector_entry_time", 0.0)
+        self.corrector_step_size_multiplier = cfg.sampler.get(
+            "corrector_step_size_multiplier", 1.5)
         self.is_ordinal = cfg.sampler.get("is_ordinal", True)
         self.exact_poisson = bool(cfg.sampler.get("exact_poisson", False))
         self.loss_name = cfg.loss.name
         self.rate_param = rate_param_from_loss(self.loss_name)
         self.logit_type = cfg.loss.get("logit_type", "direct")
+        # "ebm" / "bin_ebm": the network returns energies, and the per-dim
+        # logits come from the mutation enumerators (`_logits`)
         self.log_prob_kind = cfg.model.get("log_prob", "cat")
-        if self.log_prob_kind != "cat":
-            raise NotImplementedError(
-                f"model.log_prob={self.log_prob_kind!r}: EBM logits are "
-                "ported with the EBM models in a later slice"
-            )
         # a corrector whose entry time lies below the time grid never runs
         # (the shipped configs: corrector_entry_time=0.0)
         if self.corrector_entry_time < self.min_t:
@@ -235,10 +263,21 @@ class _SamplerBase:
             self.use_fused_update
             and not self.exact_poisson
             and self.rate_param == "p0t"
+            and self.log_prob_kind == "cat"
         )
 
     def _logits(self, model, params, x, t: float):
+        """(N, D, S) logits at a shared time; an EBM's energies through the
+        all-mutation or the bit-flip enumerator."""
         t_ones = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+        if self.log_prob_kind == "ebm":
+            from ctdd_tpu_torch.losses.losses import ebm_all_mutation_logits
+
+            return ebm_all_mutation_logits(model, params, x, t_ones, self.S)
+        if self.log_prob_kind == "bin_ebm":
+            from ctdd_tpu_torch.losses.losses import bin_ebm_flip_logits
+
+            return bin_ebm_flip_logits(model, params, x, t_ones)
         return model.apply(params, x, t_ones)
 
     def _rev_rates_inputs(self, model, params, x, t: float, mats=None):
@@ -279,10 +318,15 @@ class _SamplerBase:
         """What a step's count of changed dims is divided by."""
         return N
 
+    def _denoises(self) -> bool:
+        """Whether the samples end with the argmax of p0t at min_t: for the
+        tauLDR losses."""
+        return self.loss_name in TAULDR_LOSSES
+
     @torch.inference_mode()
     def sample(self, model, params, generator: torch.Generator, N: int,
                label=None, cfg_scale: float = 0.0):
-        """N samples and the per-step change rate, both as numpy arrays.
+        """N samples and the per-step change rates, as numpy arrays.
 
         `generator` must live on the model's device."""
         if label is not None or cfg_scale:
@@ -290,8 +334,8 @@ class _SamplerBase:
                 "label-conditional sampling and CFG belong to DiT, ported in "
                 "a later slice"
             )
-        x, changes = self._sample_loop(model, params, generator, N)
-        return x.cpu().numpy().astype(int), changes.cpu().numpy()
+        x, traces = self._sample_loop(model, params, generator, N)
+        return x.cpu().numpy().astype(int), traces.cpu().numpy()
 
     def _sample_loop(self, model, params, generator, N):
         """init -> one update per grid point (each followed by the corrector
@@ -307,20 +351,20 @@ class _SamplerBase:
                                  device=device).item())
         # float32 on both sides, as the JAX scan compares them
         entry = np.float32(self.corrector_entry_time)
-        changes = []
+        traces = []
         for i in range(len(ts)):
             t, h = float(ts[i]), float(hs[i])
             x_new = self.step(model, params, x, t, h, generator=generator,
                               seed=base | (i << 32))
-            changes.append(torch.sum(x != x_new) / self._changes_per(N))
+            traces.append(torch.sum(x != x_new) / self._changes_per(N))
             if self.num_corrector_steps > 0 and ts[i] <= entry:
                 for _ in range(self.num_corrector_steps):
                     x_new = self.corrector_step(model, params, x_new, t, h,
                                                 generator=generator)
             x = x_new
-        if self.loss_name in TAULDR_LOSSES:
+        if self._denoises():
             x = _denoise_argmax(model, params, x, self.min_t, N)
-        return x, torch.stack(changes)
+        return x, torch.stack(traces)
 
     def step(self, model, params, x, t: float, h: float, *, generator=None,
              seed: int = 0, u=None):
@@ -367,6 +411,38 @@ class TauL(_SamplerBase):
             generator, x, corrector, h, self.S, self.is_ordinal,
             self.exact_poisson, u=u,
         )
+
+
+@registry.samplers.register
+class TAULStepSize(TauL):
+    """Unfused tau-leaping whose `sample` returns, per step, the share of
+    dims that propose a net jump (`frac_jumped`), more than one jump
+    (`frac_multi`) and a move that survives the [0, S-1] clamp
+    (`frac_clipped`), each a (num_steps,) array; correctors as TauL's."""
+
+    _run = None  # the steps' traces while `sample` runs
+
+    def step(self, model, params, x, t: float, h: float, *, generator=None,
+             seed: int = 0, u=None, traces=None):
+        """TauL's unfused step; fills the dict `traces` when one is given,
+        and adds one to the run's while `sample` runs."""
+        if traces is None and self._run is not None:
+            traces = {}
+            self._run.append(traces)
+        rev = self._rev_rates(model, params, x, t)  # 0 at x
+        return _poisson_jump_update(generator, x, rev, h, self.S, self.is_ordinal,
+                                    self.exact_poisson, u=u, traces=traces)
+
+    def sample(self, model, params, generator: torch.Generator, N: int,
+               label=None, cfg_scale: float = 0.0):
+        """N samples and the three traces, each a (num_steps,) numpy array."""
+        self._run = []
+        try:
+            x, _ = super().sample(model, params, generator, N, label, cfg_scale)
+            run = self._run
+        finally:
+            self._run = None
+        return x, {k: torch.stack([tr[k] for tr in run]).cpu().numpy() for k in run[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -463,8 +539,261 @@ class MidPointTauL(_SamplerBase):
         return torch.clamp(x + avg_offset, 0, S - 1).to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# PCTauL: the tauLDR predictor-corrector
+# ---------------------------------------------------------------------------
+
+
+@registry.samplers.register
+class PCTauL(_SamplerBase):
+    """Tau-leaping predictor on the p0t rates (whatever the loss) over the
+    grid of `_pc_time_grid`; below the entry time, corrector steps at t - h
+    with a step of `corrector_step_size_multiplier` * h. The prior's
+    Gaussian std is 200."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.rate_param = "p0t"
+        self.initial_dist_std = 200.0
+
+    def time_grid(self):
+        return _pc_time_grid(self.min_t, self.num_steps)
+
+    def _changes_per(self, N: int) -> int:
+        return N * self.D
+
+    def _denoises(self) -> bool:
+        return True
+
+    def step(self, model, params, x, t: float, h: float, *, generator=None,
+             seed: int = 0, u=None):
+        rev = self._rev_rates(model, params, x, t)  # 0 at x
+        return _poisson_jump_update(generator, x, rev, h, self.S, True,
+                                    self.exact_poisson, u=u)
+
+    def corrector_step(self, model, params, x, t: float, h: float, *,
+                       generator=None, u=None):
+        t_corr = float(np.float32(t) - np.float32(h))  # float32, as the scan's t - h
+        corrector = self._corrector_rates(model, params, x, t_corr)
+        return _poisson_jump_update(generator, x, corrector,
+                                    self.corrector_step_size_multiplier * h, self.S,
+                                    True, self.exact_poisson, u=u)
+
+
+# ---------------------------------------------------------------------------
+# ExactSampling: the exact bridge step
+# ---------------------------------------------------------------------------
+
+
+@registry.samplers.register
+class ExactSampling(_SamplerBase):
+    """The reverse step through q_{t-h|0} and q_{t|t-h}, marginalized over
+    the network's x0:
+
+        p(x_{t-h} = k | x_t) ∝ Σ_s p0t(s | x_t) q_{t-h|0}(k | s) / q_{t|0}(x_t | s)
+                                · q_{t|t-h}(x_t | k)
+
+    with the 1/q_{t|0} bridge denominator the JAX package keeps (the
+    original reference leaves it out). One (N·D, S) x (S, S) product and a
+    Gumbel-max draw; no corrector and no final denoise."""
+
+    def _denoises(self) -> bool:
+        return False
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_corrector_steps = 0
+
+    def _changes_per(self, N: int) -> int:
+        return N * self.D
+
+    def step(self, model, params, x, t: float, h: float, *, generator=None,
+             seed: int = 0, g=None):
+        """One exact step; `g` (N, D, S) injects the Gumbel noise."""
+        N, D = x.shape
+        S = self.S
+        p0t = torch.softmax(self._logits(model, params, x, t), dim=-1)
+        t1 = torch.full((1,), t, dtype=torch.float32, device=x.device)
+        q_teps_0 = model.transition(t1 - h)[0]  # (S, S)
+        q_t_teps = model.transit_between(t1 - h, t1)[0]  # (S, S)
+        qt0 = model.transition(t1)[0]
+        xl = x.long()
+        trans_cols = q_t_teps.t()[xl]  # q_{t|t-h}(x_t | k) over k
+        qt0_denom = qt0.t()[xl] + self.eps_ratio  # q_{t|0}(x_t | s) over s
+        marg = ((p0t / qt0_denom).reshape(N * D, S) @ q_teps_0).reshape(N, D, S)
+        log_prob = safe_log(marg) + safe_log(trans_cols)
+        if g is None:
+            g = gumbel_noise(generator, log_prob.shape, log_prob.device)
+        return torch.argmax(log_prob + g, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# prefix-conditional samplers
+# ---------------------------------------------------------------------------
+
+
+class _ConditionalBase(_SamplerBase):
+    """The first `sampler.condition_dim` states are a clean prefix (the
+    `conditioner`); the chain runs over the other `sample_D`. `sample`
+    returns [conditioner | argmax p0t at min_t] as a numpy array."""
+
+    # whether `sampler.noise_prefix` applies (ConditionalPCTauLeaping
+    # ignores it, as in JAX)
+    noises_prefix = True
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.condition_dim = cfg.sampler.condition_dim
+        self.total_D = cfg.data.shape[0]
+        self.sample_D = self.total_D - self.condition_dim
+        self.reject_multiple_jumps = cfg.sampler.get("reject_multiple_jumps", False)
+        self.noise_prefix = cfg.sampler.get("noise_prefix", False)
+        if self.initial_dist != "gaussian":
+            self.initial_dist_std = None
+
+    def time_grid(self):
+        return _time_grid(1.0, self.min_t, self.num_steps)
+
+    def _cond_logits(self, model, params, conditioner, x, t: float):
+        """The network on [conditioner | x] at a shared time, its logits at
+        the sampled positions (contiguous)."""
+        t_ones = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+        logits = model.apply(params, torch.cat([conditioner, x], dim=1), t_ones)
+        return logits[:, self.condition_dim:, :].contiguous()
+
+    def _prefix_at_t(self, model, generator, conditioner, t: float, g=None):
+        """The clean prefix forward-diffused to t: one fresh draw of
+        q_{t|0}(·|prefix) per step (`sampler.noise_prefix`); `g` (N, P, S)
+        injects the Gumbel noise."""
+        qt0, _ = _shared_mats(model.process, t)
+        logits = safe_log(qt0[conditioner.long()])
+        if g is None:
+            return categorical(generator, logits)
+        return torch.argmax(logits + g, dim=-1).to(torch.int32)
+
+    def _step_conditioner(self, model, generator, conditioner, t: float, g=None):
+        """The prefix the step's network sees: the clean one, or with
+        `noise_prefix` a draw at t (the only extra randomness it takes)."""
+        if not (self.noise_prefix and self.noises_prefix):
+            return conditioner
+        return self._prefix_at_t(model, generator, conditioner, t, g=g)
+
+    def _cond_rates(self, model, params, conditioner, x, t: float):
+        """(R(x, ·) rows, the p0t reverse rates 0 at x) on the sampled dims;
+        the reverse rates through the reverse-rates kernel with the shared
+        (S, S) table."""
+        qt0, rate = _shared_mats(model.process, t)
+        xl = x.long()
+        rev = rate_kernels.reverse_rates(
+            self._cond_logits(model, params, conditioner, x, t),
+            qt0.t()[xl] + self.eps_ratio, qt0, rate.t()[xl], x)
+        return rate[xl], rev
+
+    def _jumps_ordinal(self) -> bool:
+        return not self.reject_multiple_jumps
+
+    @torch.inference_mode()
+    def sample(self, model, params, generator: torch.Generator, N: int,
+               conditioner=None):
+        """N samples (N, total_D) given `conditioner` (N, condition_dim)
+        ints; `generator` lives on the model's device."""
+        if conditioner is None or conditioner.shape[0] != N:
+            raise ValueError(f"{type(self).__name__} needs a conditioner of {N} rows")
+        conditioner = torch.as_tensor(np.asarray(conditioner), dtype=torch.int32,
+                                      device=model.device)
+        x = get_initial_samples(generator, N, self.sample_D, self.S, self.initial_dist,
+                                self.initial_dist_std, device=model.device)
+        ts, hs = self.time_grid()
+        entry = np.float32(self.corrector_entry_time)
+        for i in range(len(ts)):
+            t, h = float(ts[i]), float(hs[i])
+            cond = self._step_conditioner(model, generator, conditioner, t)
+            x = self.step(model, params, cond, x, t, h, generator=generator)
+            if self.num_corrector_steps > 0 and ts[i] <= entry:
+                for _ in range(self.num_corrector_steps):
+                    x = self.corrector_step(model, params, conditioner, x, t, h,
+                                            generator=generator)
+        p0t = torch.softmax(self._cond_logits(model, params, conditioner, x, self.min_t),
+                            dim=-1)
+        x0max = torch.argmax(p0t, dim=-1).to(torch.int32)
+        return torch.cat([conditioner, x0max], dim=1).cpu().numpy().astype(int)
+
+    def step(self, model, params, conditioner, x, t: float, h: float, *,
+             generator=None, u=None):
+        """A Poisson tau-leap step of the sampled dims; `u` injects the
+        uniforms."""
+        _, rev = self._cond_rates(model, params, conditioner, x, t)
+        return _poisson_jump_update(generator, x, rev, h, self.S, self._jumps_ordinal(),
+                                    self.exact_poisson, u=u)
+
+
+@registry.samplers.register
+class ConditionalTauLeaping(_ConditionalBase):
+    """Tau-leaping on the sampled dims; `reject_multiple_jumps` rejects a
+    dim's multi-jump proposals (the original reference computes the mask and
+    drops it)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_corrector_steps = 0
+
+
+@registry.samplers.register
+class ConditionalPCTauLeaping(_ConditionalBase):
+    """The predictor-corrector on the sampled dims, on PCTauL's grid; the
+    clean prefix throughout (`noise_prefix` is ignored, as in JAX)."""
+
+    noises_prefix = False
+
+    def time_grid(self):
+        return _pc_time_grid(self.min_t, self.num_steps)
+
+    def corrector_step(self, model, params, conditioner, x, t: float, h: float, *,
+                       generator=None, u=None):
+        t_corr = float(np.float32(t) - np.float32(h))
+        tf, rv = self._cond_rates(model, params, conditioner, x, t_corr)
+        return _poisson_jump_update(
+            generator, x, indexing.zero_at(tf + rv, x),
+            self.corrector_step_size_multiplier * h, self.S, self._jumps_ordinal(),
+            self.exact_poisson, u=u)
+
+
+@registry.samplers.register
+class ConditionalLBJF(_ConditionalBase):
+    """The Euler (LBJF) step on the sampled dims: the conditional reverse
+    rates through the reverse-rates kernel, the posterior through the Euler
+    posterior kernel, a Gumbel-max draw."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_corrector_steps = 0
+
+    def step(self, model, params, conditioner, x, t: float, h: float, *,
+             generator=None, g=None):
+        _, rev = self._cond_rates(model, params, conditioner, x, t)
+        return _categorical_euler_update(generator, x, rev, h, g=g)
+
+
 for _alias, _target in (
     ("ElboTauL", "TauL"), ("TauLeaping", "TauL"), ("CRMLBJF", "LBJF"),
     ("LBJFSampling", "LBJF"), ("CRMebmLBJF", "LBJF"),
 ):
     registry.samplers.alias(_alias, _target)
+
+
+def lbjf_corrector_step(cfg, model, params, generator, xt, t: float, h: float, N: int,
+                        xt_target=None, g=None):
+    """One standalone LBJF corrector step: the Euler posterior of the
+    corrector rates ratio·R(x_t, ·) + R(x_t, ·) (the ratio of the network's
+    log-probs at x_t), one-hot at `xt_target` (x_t by default), through the
+    posterior kernel, and a Gumbel-max draw; `g` (N, D, S) injects the
+    noise."""
+    if xt_target is None:
+        xt_target = xt
+    t_ones = torch.full((N,), t, dtype=torch.float32, device=xt.device)
+    logits = model.apply(params, xt, t_ones)
+    ll_all, ll_xt = logprob_with_logits(cfg.loss.get("logit_type", "direct"),
+                                        model.process, xt, t_ones, logits)
+    fwd_rate = model.rate_mat(xt, t_ones)
+    rev = torch.exp(ll_all - ll_xt[..., None]) * fwd_rate + fwd_rate
+    return _categorical_euler_update(generator, xt_target, rev, h, g=g)

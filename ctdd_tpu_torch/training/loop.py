@@ -10,7 +10,8 @@ pools) swaps in a fresh pool on the device every
 `data.stream_refresh_period` epochs, generated on a background thread while
 the device trains when `data.stream_async` is on (the default for a period
 above 1); pools are keyed by the absolute epoch, so a resume replays the
-stream. On a CUDA device cuDNN runs deterministic for the whole run.
+stream. On a CUDA device cuDNN and the attention backward run
+deterministic for the whole run.
 Sample grids are saved as `samples_<step>.npy` (the PNG grid and the
 loss-curve PNG wait for the loggers port). Not ported yet, and refused with
 NotImplementedError: the label-conditional path, D3PM and on-device
@@ -37,7 +38,7 @@ from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
 from ctdd_tpu_torch.training.train_step import make_device_data_step, make_train_step
 from ctdd_tpu_torch.utils import bookkeeping
-from ctdd_tpu_torch.utils.device import deterministic_cudnn, resolve_device
+from ctdd_tpu_torch.utils.device import deterministic_training, resolve_device
 
 
 def _refuse_unported(cfg, model):
@@ -129,10 +130,19 @@ class PoolStream:
 
 
 def _save_sample_grid(model, state, sampler, out_dir: str, step: int,
-                      n_samples: int = 16) -> str:
-    """Sample with the EMA weights (seeded by the step); save the states."""
+                      n_samples: int = 16, dataset=None) -> Optional[str]:
+    """Sample with the EMA weights (seeded by the step); save the states. A
+    prefix-conditional sampler takes the first `n_samples` training
+    prefixes, and is skipped where the dataset holds fewer."""
     gen = torch.Generator(device=model.device).manual_seed(step)
-    samples, _ = sampler.sample(model, state.ema_params, gen, N=n_samples)
+    if getattr(sampler, "condition_dim", None):
+        if dataset is None or len(dataset) < n_samples:
+            return None
+        prefixes = np.asarray(dataset.data[:n_samples]).reshape(n_samples, -1)
+        samples = sampler.sample(model, state.ema_params, gen, N=n_samples,
+                                 conditioner=prefixes[:, :sampler.condition_dim])
+    else:
+        samples, _ = sampler.sample(model, state.ema_params, gen, N=n_samples)
     path = os.path.join(out_dir, f"samples_{step}.npy")
     np.save(path, samples)
     return path
@@ -154,10 +164,11 @@ def train(
     the first step, sample grids and checkpoint saves are left out.
     `info["losses"]` holds the logged losses, `info["step_losses"]` every
     step's (the 1e9 sentinel where a step was skipped), `info["pool_swaps"]`
-    the fresh-pool swaps (`PoolStream.swaps`). On a CUDA device cuDNN runs
-    deterministic (`deterministic_cudnn`) until it returns."""
+    the fresh-pool swaps (`PoolStream.swaps`). On a CUDA device cuDNN and
+    the attention backward run deterministic (`deterministic_training`)
+    until it returns."""
     device = resolve_device(device)
-    with deterministic_cudnn(device):
+    with deterministic_training(device):
         return _train(cfg, n_iters=n_iters, seed=seed, resume_from=resume_from,
                       writer_kind=writer_kind, log_every=log_every,
                       profile_steps=profile_steps, device=device)
@@ -276,7 +287,8 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
                 # the loss history is durable at every checkpoint
                 writer.flush()
             if sampler is not None and (it + 1) % sample_freq == 0:
-                _save_sample_grid(model, state, sampler, paths["pngs"], it + 1)
+                _save_sample_grid(model, state, sampler, paths["pngs"], it + 1,
+                                  dataset=dataset)
             t_aside += time.perf_counter() - t0
         _sync(device)
         elapsed = (time.perf_counter() - t_first - t_aside) if t_first else 0.0

@@ -35,18 +35,31 @@ def tf32_off():
 
 
 @contextlib.contextmanager
-def deterministic_cudnn(device):
-    """cuDNN's deterministic algorithms, without its autotuner, inside the
-    block on a CUDA device, so that two identical train steps give identical
-    gradients (PyTorch's defaults pick algorithms that add in another order
-    from run to run); the caller's settings come back after it. A no-op on
-    the CPU."""
+def deterministic_training(device):
+    """Inside the block on a CUDA device, two identical train steps give
+    identical gradients: cuDNN runs its deterministic algorithms without its
+    autotuner (PyTorch's defaults pick algorithms that add in another order
+    from run to run), and PyTorch's deterministic algorithms are on, so that
+    `F.scaled_dot_product_attention`'s memory-efficient backward adds in a
+    fixed order (warn-only mode would leave its atomic adds in place),
+    without the NaN fill of fresh tensors that they switch on. The caller's
+    settings come back after it. A no-op on the CPU. (The math attention
+    backend is deterministic too, but it holds the (B, H, L, L) weights.)"""
     if torch.device(device).type != "cuda":
         yield
         return
-    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    import torch.utils.deterministic as det
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
     try:
         yield
     finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        det.fill_uninitialized_memory = saved[4]

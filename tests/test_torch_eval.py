@@ -123,7 +123,6 @@ def test_eval_accuracies_and_save_samples(tmp_path, capsys, metric, D, S):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--metric", "cond_mmd"], "conditional samplers"),
     (["--label", "1,2"], "label-conditional"),
     (["--cfg-scale", "2.0"], "label-conditional"),
     (["--set", "loss.name=d3pm"], "D3PM"),

@@ -101,6 +101,15 @@ def test_the_maze_sudoku_protein_slice_modules_are_covered():
             "ctdd_tpu_torch.config.presets.sudoku"} <= set(_modules())
 
 
+def test_the_samplers_ebm_and_conditional_slice_modules_are_covered():
+    """The rglob above reaches the EBM and sequence-transformer networks,
+    the pianoroll data and the slice's presets."""
+    assert {"ctdd_tpu_torch.networks.ebm", "ctdd_tpu_torch.networks.transformer",
+            "ctdd_tpu_torch.data.pianoroll", "ctdd_tpu_torch.sampling.samplers",
+            "ctdd_tpu_torch.config.presets.synthetic_ebm",
+            "ctdd_tpu_torch.config.presets.pianoroll_conditional"} <= set(_modules())
+
+
 def test_the_generators_build_only_from_the_ports_source():
     """The port's generator library is built from ctdd_tpu_torch/csrc/
     datagen.cpp into ctdd_tpu_torch/csrc/build/, never from or into the JAX

@@ -33,8 +33,9 @@ NETWORKS = {"hollow_maze": "HollowTransformerWrapper",
 
 
 def test_the_port_has_eighteen_presets():
-    assert sorted(preset_names()) == sorted(NEW + HOLLOW + EARLIER)
-    assert len(preset_names()) == 18
+    """The eighteen presets of slices 1-7 stay (later slices add theirs)."""
+    assert len(set(NEW + HOLLOW + EARLIER)) == 18
+    assert set(NEW + HOLLOW + EARLIER) <= set(preset_names())
 
 
 @pytest.mark.parametrize("name", NEW)
