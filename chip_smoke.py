@@ -32,7 +32,7 @@ Phases (any fault exits non-zero; nothing is caught):
  10. steps    where a batch-16 LBJF step's time goes
  11. serving  three more seeded checkpoints over HTTP (no warm-up batch),
               each with its exact launch counts: the flagship with LBJF and
-              a live corrector (1000 steps), tauUnet_mnist_ll (MidPointTauL,
+              a live corrector (500 steps), tauUnet_mnist_ll (MidPointTauL/500,
               fused) and tauUnet_maze (LBJF/200)
  12. training the flagship at full width on a seeded MNIST-shaped stand-in:
               (a) one B=4 step, card vs CPU, held to the CPU's own float32
@@ -54,9 +54,9 @@ Phases (any fault exits non-zero; nothing is caught):
               steps, both rate kernels vs plain at N=4096, then its MMD at the
               reference protocol (25 x 4096, LBJF/100; 2500 launches of each)
               between data vs data and uniform bits; (c) FIDs of [12]'s
-              checkpoint (256 fused TauL samples, 1000 launches per eval)
+              checkpoint (256 fused TauL/500 samples, 500 launches per eval)
               with trained, lenet and Inception features; (d) the bench at
-              100 sampler steps (its bf16 train step included)
+              50 sampler steps (its bf16 train step included)
  14. hollow   the SDDM hollow family at full width: (a) holvisual_mnist
               (D=784, S=256, 2 x 6 layers, attention readout) logits card vs
               CPU, and one B=4 CatRM step held as (12a); (b) train() 50
@@ -78,9 +78,9 @@ Phases (any fault exits non-zero; nothing is caught):
               to regenerate(4)), its sudoku_acc by the eval CLI (LBJF/1000:
               exactly 1000 launches of each rate kernel); (d) tauUnet_maze
               the same across its synchronous swap at 100, maze_acc with
-              LBJF/200; (e) hollow_maze trained 50 steps and served
+              LBJF/200; (e) hollow_maze trained 25 steps and served
               (LBJF/750 on the ratio path), hollow_protein (S=21) trained
-              50 steps and sampled (LBJF/100), four more presets 5 steps
+              25 steps and sampled (LBJF/100), four more presets 5 steps
               each
  16. slice 8  the rest of the samplers, the EBM and the prefix-conditional
               path at the presets' widths: (a) pianoroll_cond
@@ -92,15 +92,35 @@ Phases (any fault exits non-zero; nothing is caught):
               steps by the train CLI (its loss falls), MMD at 3 x 256 by the
               eval CLI: with CRMebmLBJF/750 (2250 posterior launches at S=2)
               between data vs data and the mean of uniform random bits over
-              20 eval seeds, with ExactSampling/750 (no kernel) between data
-              vs data and 3 std above that mean; (c) PCTauL and TAULStepSize on the flagship with a live
-              corrector, exact launch counts and finite traces; (d) card vs
+              20 eval seeds, with ExactSampling/100 (no kernel) between data
+              vs data and 3 std above that mean; (c) PCTauL and TAULStepSize
+              (100 steps) on the flagship with a live corrector, exact
+              launch counts and finite traces; (d) card vs
               CPU: the sequence transformer's and the EBM's outputs, one
               CondCTElbo, CondNLL (key head) and BinEBMAux step, K steps of
               PCTauL, ExactSampling and ConditionalTauLeaping with injected
               noise; (e) two train() runs bit-identical for the flagship,
               sudoku, hollow_maze and pianoroll_cond (train() runs PyTorch's
               deterministic algorithms)
+ 17. slice 9  the DiT, U-ViT and CIFAR10 image presets at full width, on
+              seeded MNIST- and CIFAR10-layout stand-ins: (a) card vs CPU
+              logits at B=2 (DiT with labels, both U-ViTs, the CIFAR10 UNet,
+              the tau-UNet at tauUnet_cifar10's width) and DiT's guided
+              logits at cfg_scale 0, 1, 1.5, each with a TF32 control; (b)
+              tauUnet_cifar10 through train() at B=64 (two 20-step runs
+              bit-identical, steps/s, peak memory, the step's device split),
+              served over HTTP (TauL/1000: exactly 1000 reverse-rates
+              launches at (16, 3072, 256)), and 3 fused steps against plain
+              at D=3072; (c) dit_mnist: two 20-step runs bit-identical, its
+              label table bit-equal to its start under NLL (params and EMA)
+              and moved under NLLOriginal, one guided batch of 16 (labels
+              arange % 10, cfg_scale 1.5, TauL/100: 100 reverse-rates
+              launches, two forwards a step) and one /generate?label=...
+              request; (d) uvit_mnist, uvit_cifar10 and dit_mnist's B=64
+              steps; (e) bin_mnist_hollow trained 30 steps, LBJF/1000 at
+              batch 16 (exactly 1000 posterior launches at (16, 784, 2));
+              (f) the kernels against plain and timed at these shapes; (g)
+              the eval CLI's lenet FID of (b)'s checkpoint (32 samples)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -204,6 +224,16 @@ def timed(kernel, plain, iters: int) -> dict:
     return out
 
 
+def within_bound(t: dict) -> dict:
+    """`timed`'s record with its bound: a traced time below the bound means
+    the trace lost launches (seen once at (256, 3072, 256)), so the loop's
+    times stand in for it."""
+    if t["ms"] < t["bound_ms"]:
+        t.update(ms=t["loop_ms"], plain_ms=t["plain_loop_ms"],
+                 timed_by="events around a loop (the trace read below the bound)")
+    return t
+
+
 # ---------------------------------------------------------------------------
 # phase 3/4 inputs: real GaussianTargetRate tables at one sampler step
 # ---------------------------------------------------------------------------
@@ -289,47 +319,50 @@ def phase_kernels(dev) -> float:
     return float(worst), flipped
 
 
-def phase_timing(dev) -> dict:
+def fused_timing(N: int, D: int, S: int, dev) -> dict:
+    """The fused kernel, its plain version and its bound at (N, D, S),
+    mid-grid."""
     from ctdd_tpu_torch.ops import fused_update as fu
     from ctdd_tpu_torch.ops import rate_kernels as rk
 
-    out = {}
-    for N in (256, 16):
-        D, S = 784, 256
-        logits, x, qt0, rate, _, h = fused_inputs(N, D, S, 500, 1, dev)
-        iters = 20 if N == 256 else 200
-        gen = torch.Generator(device=dev).manual_seed(0)
-        t = timed(lambda: fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 3),
-                  lambda: fu.fused_tau_leap_update_plain(
-                      logits, x, x, qt0, rate, h, 1e-9, generator=gen), iters)
-        # the "expected" mode has no draws and no Poisson series; how much
-        # the series costs depends on the expected jumps per row, sum(rev * h)
-        def expected():
-            return fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 3,
-                                            mode="expected")
+    logits, x, qt0, rate, _, h = fused_inputs(N, D, S, 500, 1, dev)
+    iters = 20 if N * D > 50000 else 200
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = timed(lambda: fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 3),
+              lambda: fu.fused_tau_leap_update_plain(
+                  logits, x, x, qt0, rate, h, 1e-9, generator=gen), iters)
+    # the "expected" mode has no draws and no Poisson series; how much
+    # the series costs depends on the expected jumps per row, sum(rev * h)
+    def expected():
+        return fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 3,
+                                        mode="expected")
 
-        expected_ms = device_ms(expected, iters) or cuda_ms(expected, iters)
-        xl = x.long()
-        jumps_per_row = h * rk.reverse_rates_plain(
-            logits, qt0.t()[xl] + 1e-9, qt0, rate.t()[xl], x).sum(-1).mean().item()
-        # each input read once, the output written once; the ratio product
-        # at the bf16 tensor-core rate
-        nbytes = (logits.numel() * 4 + 2 * x.numel() * 4 + 2 * S * S * 4
-                  + x.numel() * 4)
-        flops = 2.0 * N * D * S * S
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / BF16_FLOP_PER_S * 1e3
-        out[N] = dict(**t, bound_ms=max(bytes_ms, ops_ms),
-                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                      bytes=nbytes, flops=flops, expected_mode_ms=expected_ms,
-                      expected_jumps_per_row=jumps_per_row)
-        log(f"  N={N} D={D} S={S}: kernel {t['ms']:.4f} ms by {t['timed_by']} "
-            f"({t['loop_ms']:.4f} ms per turn of a loop; mode \"expected\" "
-            f"{expected_ms:.4f} ms; {jumps_per_row:.3f} expected jumps per row), "
-            f"plain {t['plain_ms']:.4f} ms, "
-            f"bound {out[N]['bound_ms'] * 1e3:.1f} us ({out[N]['bound_by']}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+    expected_ms = device_ms(expected, iters) or cuda_ms(expected, iters)
+    xl = x.long()
+    jumps_per_row = h * rk.reverse_rates_plain(
+        logits, qt0.t()[xl] + 1e-9, qt0, rate.t()[xl], x).sum(-1).mean().item()
+    # each input read once, the output written once; the ratio product
+    # at the bf16 tensor-core rate
+    nbytes = (logits.numel() * 4 + 2 * x.numel() * 4 + 2 * S * S * 4
+              + x.numel() * 4)
+    flops = 2.0 * N * D * S * S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    out = within_bound(dict(**t, bound_ms=max(bytes_ms, ops_ms),
+                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                            bytes=nbytes, flops=flops, expected_mode_ms=expected_ms,
+                            expected_jumps_per_row=jumps_per_row, shape=[N, D, S]))
+    log(f"  N={N} D={D} S={S}: kernel {out['ms']:.4f} ms by {out['timed_by']} "
+        f"({t['loop_ms']:.4f} ms per turn of a loop; mode \"expected\" "
+        f"{expected_ms:.4f} ms; {jumps_per_row:.3f} expected jumps per row), "
+        f"plain {out['plain_ms']:.4f} ms, "
+        f"bound {out['bound_ms'] * 1e3:.1f} us ({out['bound_by']}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
     return out
+
+
+def phase_timing(dev) -> dict:
+    return {N: fused_timing(N, 784, 256, dev) for N in (256, 16)}
 
 
 # ---------------------------------------------------------------------------
@@ -464,49 +497,58 @@ def hold_posterior(what, rev, x, h, worst, prefix=""):
         f"{dead_shares[1]:.2f} of the rows")
 
 
-def phase_rate_timing(dev) -> dict:
-    """Both kernels at the serving shapes (shared table, mid-grid)."""
+def rate_timing(N: int, D: int, S: int, dev) -> dict:
+    """Both rate kernels, their plain versions and bounds at (N, D, S) with
+    a shared table, mid-grid: {kernel name: timings}."""
     from ctdd_tpu_torch.ops import rate_kernels as rk
 
+    out = {}
+    logits, qc, qt0, rc, x, h = rate_inputs(N, D, S, (0.5,), 1, dev, False)
+    iters = 20 if N * D * S > 10**6 else 200
+    rev = rk.reverse_rates(logits, qc, qt0, rc, x)
+    nds = logits.numel()
+    cases = {
+        # three (N, D, S) inputs, x, the table; one output. The product
+        # keeps float32 accuracy on the tensor cores as three TF32
+        # products (big*big + big*small + small*big)
+        "reverse_rates": (
+            lambda: rk.reverse_rates(logits, qc, qt0, rc, x),
+            lambda: rk.reverse_rates_plain(logits, qc, qt0, rc, x),
+            4 * (3 * nds + x.numel() + S * S + nds),
+            3 * 2.0 * N * D * S * S, TF32_FLOP_PER_S, "TF32"),
+        # one input, x, one output; ~8 operations per entry
+        "euler_posterior": (
+            lambda: rk.euler_posterior(rev, x, h),
+            lambda: rk.euler_posterior_plain(rev, x, h),
+            4 * (nds + x.numel() + nds), 8.0 * nds, F32_FLOP_PER_S, "f32"),
+    }
+    for name, (kernel, plain, nbytes, flops, rate, rate_name) in cases.items():
+        t = timed(kernel, plain, iters)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / rate * 1e3
+        out[name] = within_bound(dict(
+            **t, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes, flops=flops, shape=[N, D, S]))
+        log(f"  {name} N={N} D={D} S={S}: kernel {out[name]['ms']:.4f} ms by "
+            f"{out[name]['timed_by']} ({t['loop_ms']:.4f} ms per turn of a loop), plain "
+            f"{out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms'] * 1e3:.2f} us "
+            f"({out[name]['bound_by']}: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP at the {rate_name} rate)")
+    return out
+
+
+def phase_rate_timing(dev) -> dict:
+    """Both kernels at the serving shapes (shared table, mid-grid)."""
     out = {"reverse_rates": {}, "euler_posterior": {}}
     # the flagship's shapes; sudoku's sampling shape (the eval's 256 boards,
     # S=9), pianoroll_cond's (cond_mmd's 64 suffixes of 224, S=129) and the
     # EBM's (256 rows of 32 bits), keyed by name
-    for key, (N, D, S) in ((256, (256, 784, 256)), (16, (16, 784, 256)),
-                           ("sudoku", (256, 81, 9)), ("pianoroll", (64, 224, 129)),
-                           ("ebm", (256, 32, 2))):
-        logits, qc, qt0, rc, x, h = rate_inputs(N, D, S, (0.5,), 1, dev, False)
-        iters = 20 if N * D * S > 10**6 else 200
-        rev = rk.reverse_rates(logits, qc, qt0, rc, x)
-        nds = logits.numel()
-        cases = {
-            # three (N, D, S) inputs, x, the table; one output. The product
-            # keeps float32 accuracy on the tensor cores as three TF32
-            # products (big*big + big*small + small*big)
-            "reverse_rates": (
-                lambda: rk.reverse_rates(logits, qc, qt0, rc, x),
-                lambda: rk.reverse_rates_plain(logits, qc, qt0, rc, x),
-                4 * (3 * nds + x.numel() + S * S + nds),
-                3 * 2.0 * N * D * S * S, TF32_FLOP_PER_S, "TF32"),
-            # one input, x, one output; ~8 operations per entry
-            "euler_posterior": (
-                lambda: rk.euler_posterior(rev, x, h),
-                lambda: rk.euler_posterior_plain(rev, x, h),
-                4 * (nds + x.numel() + nds), 8.0 * nds, F32_FLOP_PER_S, "f32"),
-        }
-        for name, (kernel, plain, nbytes, flops, rate, rate_name) in cases.items():
-            t = timed(kernel, plain, iters)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / rate * 1e3
-            out[name][key] = dict(
-                **t, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=nbytes, flops=flops, shape=[N, D, S])
-            log(f"  {name} N={N} D={D} S={S}: kernel {t['ms']:.4f} ms by "
-                f"{t['timed_by']} ({t['loop_ms']:.4f} ms per turn of a loop), plain "
-                f"{t['plain_ms']:.4f} ms, bound {out[name][key]['bound_ms'] * 1e3:.2f} us "
-                f"({out[name][key]['bound_by']}: {nbytes / 1e6:.2f} MB, "
-                f"{flops / 1e9:.3f} GFLOP at the {rate_name} rate)")
+    for key, shape in ((256, (256, 784, 256)), (16, (16, 784, 256)),
+                       ("sudoku", (256, 81, 9)), ("pianoroll", (64, 224, 129)),
+                       ("ebm", (256, 32, 2))):
+        for name, t in rate_timing(*shape, dev).items():
+            out[name][key] = t
     return out
 
 
@@ -672,10 +714,11 @@ def serve_request(dev, tmpdir, label, cfg, n, expected, seed, warmup=True):
     return serve_checkpoint(dev, label, cfg, path, n, expected, warmup=warmup)
 
 
-def serve_checkpoint(dev, label, cfg, path, n, expected, warmup):
+def serve_checkpoint(dev, label, cfg, path, n, expected, warmup, query: str = ""):
     """Checkpoint file -> SamplerService -> one /generate?n= request over
-    HTTP. The launch counters are set to 0 just before the request and read
-    just after; `expected` gives every kernel's exact count per batch."""
+    HTTP (`query` appended to it). The launch counters are set to 0 just
+    before the request and read just after; `expected` gives every
+    kernel's exact count per batch."""
     from ctdd_tpu_torch.ops import kernel_wrappers
     from ctdd_tpu_torch.serving import SamplerService, run_http_server
 
@@ -702,7 +745,7 @@ def serve_checkpoint(dev, label, cfg, path, n, expected, warmup):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/generate?n={n}",
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/generate?n={n}{query}",
                                     timeout=900) as r:
             payload = json.loads(r.read())
         elapsed = time.perf_counter() - t0
@@ -746,6 +789,7 @@ def phase_serving_slice2(dev, tmpdir):
 
     out = {}
     cfg = full_cfg(fused=False, sampler="LBJF")
+    cfg.sampler.num_steps = SERVE_CUT_STEPS
     cfg.sampler.num_corrector_steps = 2
     cfg.sampler.corrector_entry_time = 0.05
     ts, _ = get_sampler(cfg).time_grid()
@@ -758,6 +802,7 @@ def phase_serving_slice2(dev, tmpdir):
         {"reverse_rates": per_batch, "euler_posterior": per_batch}, seed=3, warmup=False)
 
     cfg = full_cfg(fused=True, preset="tauUnet_mnist_ll")
+    cfg.sampler.num_steps = SERVE_CUT_STEPS
     n_steps = len(get_sampler(cfg).time_grid()[0])
     out["tauUnet_mnist_ll"] = serve_request(
         dev, tmpdir, "tauUnet_mnist_ll", cfg, 16,
@@ -785,7 +830,12 @@ FLOOR_MULT = 4.0  # (a) updates: allowed, in units of their floor
 MOVED_BY = 0.1  # (a): "moved otherwise" = updates that differ by > 0.1 lr
 MOVED_SHARE_ABS = 1e-4  # (a): ... plus this share of the entries
 RESUME_TOL = 2e-3  # (c): resumed vs uninterrupted, share of the distance trained
-BENCH_STEPS = 100  # phase [13](d): the bench's sampler steps (its protocol's 1000, cut for time)
+# phase [13](d): the bench's sampler steps (its protocol's 1000; 100 until phase [17] came)
+BENCH_STEPS = 50
+# phase [13](c): the FID evals' TauL steps (the preset's 1000 until phase [17] came)
+FID_STEPS = 500
+# phase [11]: LBJF with a corrector and tauUnet_mnist_ll (1000 until phase [17] came)
+SERVE_CUT_STEPS = 500
 
 
 def mnist_like(path: str, n: int = 8192, seed: int = 0) -> str:
@@ -1542,7 +1592,7 @@ def cli_mmd(dev, tmpdir: str, preset: str, rounds: int, trained: tuple = None) -
 
 def phase_fid(ckpt_dir: str, data_path: str, npz: str) -> dict:
     """(c) The eval CLI's FID of [12]'s trained flagship: 256 samples in one
-    batch of fused TauL (1000 launches per eval) against 4096 stand-in
+    batch of fused TauL/FID_STEPS (that many launches per eval) against 4096 stand-in
     images, with trained and lenet features, each above real vs real (256
     other stand-in images) and below seeded uniform noise, both levels taken
     by the same eval in the same features (`--fid-levels`); then with
@@ -1556,8 +1606,8 @@ def phase_fid(ckpt_dir: str, data_path: str, npz: str) -> dict:
     common = ["--preset", "tauUnet_mnist", "--ckpt", ckpt_dir, "--metric", "fid",
               "--samples", str(FID_SAMPLES), "--batch", str(FID_SAMPLES), "--n-real",
               str(FID_REAL), "--fid-levels", "--set", "sampler.use_fused_update=True",
-              f"data.location={data_path}"]
-    want = {"fused_tau_leap_update": 1000, "reverse_rates": 0, "euler_posterior": 0}
+              f"sampler.num_steps={FID_STEPS}", f"data.location={data_path}"]
+    want = {"fused_tau_leap_update": FID_STEPS, "reverse_rates": 0, "euler_posterior": 0}
     out = {}
     kinds = ("trained", "lenet", "inception")
     with ThreadPoolExecutor(len(kinds)) as pool:
@@ -1864,7 +1914,7 @@ SUDOKU_TRAIN_STEPS = 101  # (c): 100 steps an epoch: the async swap at 100
 # every 4 epochs, with the swap at step 400, until phase [16] came: cut for time)
 SUDOKU_STREAM = ("data.stream_refresh_period=1", "data.stream_async=True")
 MAZE_TRAIN_STEPS = 101  # (d): 100 steps an epoch: the synchronous swap at 100
-FAMILY_STEPS = 50  # (e) hollow_maze and hollow_protein
+FAMILY_STEPS = 25  # (e) hollow_maze and hollow_protein (50 until phase [17] came)
 SHORT_STEPS = 5  # (e) protein_maze, bert_maze, hollow_maze_distr
 MASKED_STEPS = 2  # (e) bert_mazemasked, 225 masked passes a step (5 until [16] came)
 DETERMINISM_STEPS = 20  # [16](e)
@@ -2278,7 +2328,9 @@ EBM_TRAIN_STEPS = 300  # (b): ebm_synthetic by the train CLI (the preset's 3000,
 EBM_ROUNDS, EBM_SAMPLES = 3, 256  # (b): the JAX README's EBM protocol (the reference's 25 x 4096)
 UNIFORM_SEEDS = 20  # (b): the uniform-bits level, mean and std over this many eval seeds
 UNIFORM_SPREAD = 3.0  # (b): ExactSampling's ceiling, in std above the uniform-bits mean
-PC_STEPS = 200  # (c): PCTauL and TAULStepSize on the flagship (1000, cut for time)
+# (b): ExactSampling's eval, 100 of the preset's 750 steps (750 until phase [17] came)
+EXACT_STEPS = 100
+PC_STEPS = 100  # (c): PCTauL and TAULStepSize on the flagship (1000; 200 before [17])
 PC_ENTRY, PC_CORRECTOR_STEPS = 0.1, 2  # (c): a live corrector
 # (d): the EBM readout's bias: the loss sees energy differences only
 EBM_INVARIANT = ("MaskedTransformer_0.MLP_0.Dense_1.bias",)
@@ -2617,7 +2669,7 @@ def trained_model(cfg, dev, ckpt_dir: str, steps: int, ema: bool = True):
     return model
 
 
-def one_batch(label, cfg, model, n, want, **kw) -> dict:
+def one_batch(what, cfg, model, n, want, **kw) -> dict:
     """One batch of `n` from `model` with the config's sampler, its exact
     launch counts."""
     from ctdd_tpu_torch.sampling.samplers import get_sampler
@@ -2628,10 +2680,10 @@ def one_batch(label, cfg, model, n, want, **kw) -> dict:
         model, model.net, torch.Generator(device=model.device).manual_seed(0), n, **kw))
     seconds = time.perf_counter() - t0
     samples = out[0] if isinstance(out, tuple) else out
-    log(f"  {label}: one batch of {n}, {cfg.sampler.name}, in {seconds:.2f} s; launches "
+    log(f"  {what}: one batch of {n}, {cfg.sampler.name}, in {seconds:.2f} s; launches "
         f"{launches} (expected {want}); values in [{samples.min()}, {samples.max()}]")
     if launches != want or samples.min() < 0 or samples.max() >= cfg.data.S:
-        raise AssertionError(f"{label}: launches {launches}, samples in "
+        raise AssertionError(f"{what}: launches {launches}, samples in "
                              f"[{samples.min()}, {samples.max()}]")
     return dict(n=n, sampler=cfg.sampler.name, seconds=seconds, launches=launches,
                 samples=samples)
@@ -2688,7 +2740,9 @@ def phase_slice8(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
         e_evals = {name: pool.submit(
             run_cli, "eval", "--preset", "ebm_synthetic", "--ckpt", e_ckpt, "--metric", "mmd",
             "--rounds", str(EBM_ROUNDS), "--samples", str(EBM_SAMPLES), "--batch", "0",
-            "--set", f"sampler.name={name}") for name in ("ExactSampling", "CRMebmLBJF")}
+            "--set", f"sampler.name={name}",
+            *([f"sampler.num_steps={EXACT_STEPS}"] if name == "ExactSampling" else []))
+            for name in ("ExactSampling", "CRMebmLBJF")}
         lcfg = get_preset("pianoroll_cond")
         lcfg.data.location, lcfg.sampler.name = pcfg.data.location, "ConditionalLBJF"
         P = lcfg.sampler.condition_dim
@@ -2745,7 +2799,8 @@ def phase_slice8(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
         f"({levels['uniform']:.6f} at seed 0); data vs data {levels['data']:.3e}; the train "
         f"CLI {e_rate:.2f} steps/s beside pianoroll_cond's")
     for name, res in e_res.items():
-        log(f"  ebm_synthetic MMD ({name}/{e_steps}, {EBM_ROUNDS} x {EBM_SAMPLES}) "
+        n_steps = EXACT_STEPS if name == "ExactSampling" else e_steps
+        log(f"  ebm_synthetic MMD ({name}/{n_steps}, {EBM_ROUNDS} x {EBM_SAMPLES}) "
             f"{res['value']:.6f}: held between data vs data and {ceiling[name]:.6f}; "
             f"launches {res['kernel_launches']} (expected {want_ebm[name]})")
     if not losses["trained"] < losses["start"]:
@@ -2764,6 +2819,374 @@ def phase_slice8(dev, tmpdir: str, data_path: str, pools: dict) -> dict:
         ebm_synthetic=dict(train_steps=EBM_TRAIN_STEPS, cli_steps_per_s_shared=e_rate,
                            loss=losses, mmd=e_res, levels=levels),
         determinism=det, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: slice 9, the DiT, U-ViT and CIFAR10 image presets and the
+# label-conditional path
+# ---------------------------------------------------------------------------
+
+IMAGE_SHORT_STEPS = 10  # (c) dit_mnist under NLLOriginal
+BIN_TRAIN_STEPS = 30  # (e) bin_mnist_hollow (the preset's 500k, cut)
+CFG_STEPS = 100  # (c) the guided batch and /generate: 100 of the preset's 1000 steps
+CFG_SCALE = 1.5
+FID_LENET_SAMPLES = 32  # (g) not a quality figure
+K_FUSED = 3  # (b) fused vs plain steps at D=3072
+TABLE_LEAF = "DiT_0.LabelEmbedder_0.Embed_0.weight"
+
+
+def cifar_like(path: str, n: int = 2048, seed: int = 1) -> str:
+    """A seeded stand-in in CIFAR10's layout: uint8 (n, 3, 32, 32) images of
+    `mnist_like`'s strokes on a 32x32 canvas, tinted per image, as
+    `x_train`/`y_train` (an image's label the decile of its mean)."""
+    grey = np.load(mnist_like(path + ".grey.npz", n, seed))["x_train"]
+    os.remove(path + ".grey.npz")
+    canvas = np.zeros((n, 32, 32), np.uint8)
+    canvas[:, 2:30, 2:30] = grey
+    tint = np.random.default_rng(seed).uniform(0.4, 1.0, (n, 3, 1, 1))
+    imgs = np.rint(canvas[:, None] * tint).astype(np.uint8)
+    ink = imgs.reshape(n, -1).mean(axis=1)
+    labels = np.searchsorted(np.quantile(ink, np.linspace(0.1, 0.9, 9)), ink)
+    np.savez(path, x_train=imgs, y_train=labels.astype(np.int64))
+    return path
+
+
+def image_cfg(tmpdir: str, preset: str, data: dict, run: str = ""):
+    """`preset` at its full width on its stand-in (`data`: preset -> npz), no
+    in-loop grid, one checkpoint at the end."""
+    from ctdd_tpu_torch.config.presets import get_preset
+
+    cfg = get_preset(preset)
+    cfg.data.location = data[preset]
+    cfg.save_location = f"{tmpdir}/{preset}{run}"
+    cfg.sampler.sample_freq = 0
+    cfg.saving.checkpoint_freq = 10**6
+    return cfg
+
+
+def tau_unet_cfg():
+    """`GaussianTargetRateImageX0PredEMA`, the zoo's tau-UNet that no preset
+    names, at `tauUnet_cifar10`'s width (its four scales)."""
+    from ctdd_tpu_torch.config.presets import get_preset
+
+    cfg = get_preset("tauUnet_cifar10")
+    cfg.model.name = "GaussianTargetRateImageX0PredEMA"
+    cfg.model.num_scales = len(cfg.model.ch_mult)
+    return cfg
+
+
+def perturbed_pair(cfg, dev):
+    """`seeded_pair` with 0.02·N(0, 1) from seed 1 added to every weight:
+    DiT's zero-initialised adaLN and final layer and U-ViT's positional
+    table would otherwise hide the layers they gate."""
+    cpu, gpu, net64 = seeded_pair(cfg, dev)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in cpu.net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    net64.load_state_dict({k: v.double() for k, v in cpu.net.state_dict().items()})
+    return cpu, gpu, net64
+
+
+def image_vs_cpu(dev) -> dict:
+    """(a) Full-width logits at B=2, card against CPU (`hold_vs_cpu`, with its
+    TF32 control): DiT (with labels), both U-ViTs, the CIFAR10 UNet and the
+    tau-UNet; then DiT's guided logits at cfg_scale 0, 1 and 1.5. The
+    logistic heads run with the min-trick (`fix_logistic`): without it the
+    far bins are ill-conditioned in float32 (the CPU's float32 sits ~2e-3
+    of the largest |logit| from its float64 there), which hides a TF32
+    network."""
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.sampling.samplers import bind_label
+
+    out = {}
+    nets = (("dit_mnist", get_preset("dit_mnist")), ("uvit_mnist", get_preset("uvit_mnist")),
+            ("uvit_cifar10", get_preset("uvit_cifar10")),
+            ("tauUnet_cifar10", get_preset("tauUnet_cifar10")), ("tau-UNet", tau_unet_cfg()))
+    g = np.random.default_rng(7)
+    for label, cfg in nets:
+        cfg.model.fix_logistic = True
+        cpu, gpu, net64 = perturbed_pair(cfg, dev)
+        D, S = cfg.model.concat_dim, cfg.data.S
+        x = torch.from_numpy(g.integers(0, S, (2, D)).astype(np.int32))
+        t = torch.tensor([0.3, 0.9])
+        y = torch.tensor([3, 7])
+        scales = (None,) + ((0.0, 1.0, CFG_SCALE) if cpu.has_label else ())
+        for scale in scales:
+            def run(where, dtype, scale=scale):
+                m = gpu if where == "cuda" else cpu
+                net = net64 if dtype == torch.float64 else m.net
+                if scale is not None:
+                    m = bind_label(m, y, scale, S)
+                kw = {"label": y.to(m.device)} if m.has_label and scale is None else {}
+                return m.apply(net, x.to(m.device), t.to(m.device, dtype), **kw).cpu()
+
+            name = label if scale is None else f"{label} guided, cfg_scale {scale:g}"
+            out[name] = hold_vs_cpu(name, run)
+        del cpu, gpu, net64
+    return out
+
+
+def fused_vs_plain_steps(dev, cfg, model) -> dict:
+    """(b) K_FUSED fused tau-leap steps at D=3072 from the trained model's
+    logits, the kernel against its plain version on the same logits and
+    injected uniforms (phase [3]'s hold); both chains go on from the plain
+    state."""
+    from ctdd_tpu_torch.ops import fused_update as fu
+    from ctdd_tpu_torch.sampling.samplers import _shared_mats
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    D, S = cfg.model.concat_dim, cfg.data.S
+    x = torch.randint(100, 156, (16, D), generator=g, device=dev, dtype=torch.int32)
+    x0, flips, states = x.clone(), 0, 0
+    with torch.inference_mode():
+        for t_, h_ in ((0.6, 1e-3), (0.3, 1e-3), (0.05, 1e-3))[:K_FUSED]:
+            logits = model.apply(model.net, x, torch.full((16,), t_, device=dev))
+            qt0, rate = _shared_mats(model.process, t_)
+            u = torch.rand((16, D, S), generator=g, device=dev)
+            k = fu.fused_tau_leap_update(logits, x, x, qt0, rate, h_, cfg.sampler.eps_ratio,
+                                         0, u=u)
+            p = fu.fused_tau_leap_update_plain(logits, x, x, qt0, rate, h_,
+                                               cfg.sampler.eps_ratio, u)
+            flips += int((k != p).sum())
+            states += p.numel()
+            x = p
+    moved = (x != x0).float().mean().item()
+    log(f"  {K_FUSED} fused TauL steps at (16, {D}, {S}), kernel vs plain on the trained "
+        f"model's logits: {flips} of {states} states differ (allowed "
+        f"{MAX_FLIP_FRAC * states:.1f}; moved {moved:.3f})")
+    if flips > MAX_FLIP_FRAC * states or not moved > 0:
+        raise AssertionError(f"fused vs plain at D={D}: {flips} differ, moved {moved}")
+    return dict(steps=K_FUSED, states=states, differ=flips, moved=moved)
+
+
+def twin_train(dev, cfg) -> tuple:
+    """Two train() runs of `cfg` from seed 0, DETERMINISM_STEPS steps each,
+    which must end bit-identical: (the first run's state, its info with its
+    peak memory)."""
+    from ctdd_tpu_torch.training.loop import train
+
+    steps = DETERMINISM_STEPS
+    runs = []
+    base = cfg.save_location
+    for run in ("a", "b"):
+        cfg.save_location = f"{base}_{run}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, info = train(cfg, n_iters=steps, seed=0, device=dev, log_every=steps)
+        info["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        runs.append((state, info))
+    cfg.save_location = base
+    (a, info), (b, _) = runs
+    differ = sorted(k for k in a.params if not torch.equal(a.params[k], b.params[k]))
+    log(f"  {cfg.experiment_name}: two train() runs of {steps} steps at "
+        f"B={cfg.data.batch_size}: {info['steps_per_sec']:.2f} steps/s, peak "
+        f"{info['peak_memory_gb']:.2f} GB; leaves that differ bit for bit: {len(differ)} of "
+        f"{len(a.params)}" + (f" ({differ[:6]})" if differ else ""))
+    if differ:
+        raise AssertionError(f"{cfg.experiment_name}: two train() runs differ: {differ[:6]}")
+    return a, info
+
+
+def image_training(dev, cfg, data_path: str) -> tuple:
+    """(train() rate and peak memory (`twin_train`'s first run) with the
+    bare step's device split (`train_step_breakdown`, its idle share,
+    deterministic as train()), the first run's checkpoint directory)."""
+    from ctdd_tpu_torch.utils.device import deterministic_training
+
+    _, info = twin_train(dev, cfg)
+    with deterministic_training(dev):
+        step = train_step_breakdown(dev, cfg, np.load(data_path)["x_train"])
+    return dict(train_steps_per_s=info["steps_per_sec"],
+                peak_memory_gb=info["peak_memory_gb"], step=step), info["paths"]["checkpoints"]
+
+
+def dit_label_path(dev, tmpdir: str, data: dict) -> dict:
+    """(c) `dit_mnist`: two 20-step train() runs under its NLL, the label
+    table bit-equal to its start in the params and the EMA (NLL never passes
+    the label: the reference quirk); IMAGE_SHORT_STEPS steps under
+    NLLOriginal, where the table moves in both; one guided batch of 16
+    (labels arange % 10, cfg_scale 1.5, CFG_STEPS steps: that many
+    reverse-rates launches and two forwards a step and for the denoise);
+    one /generate?label=...&cfg_scale=... request."""
+    from ctdd_tpu_torch.training.loop import train
+
+    cfg = image_cfg(tmpdir, "dit_mnist", data)
+    start = start_weights(cfg, dev)[TABLE_LEAF]
+    state, info = twin_train(dev, cfg)
+    held = [torch.equal(state.params[TABLE_LEAF].detach(), start),
+            torch.equal(state.ema_params[TABLE_LEAF], start)]
+    ocfg = image_cfg(tmpdir, "dit_mnist", data, run="_nll_original")
+    ocfg.loss.name = "NLLOriginal"
+    ostate, _ = train(ocfg, n_iters=IMAGE_SHORT_STEPS, seed=0, device=dev,
+                      log_every=IMAGE_SHORT_STEPS)
+    moved = [float((ostate.params[TABLE_LEAF].detach() - start).abs().max()),
+             float((ostate.ema_params[TABLE_LEAF] - start).abs().max())]
+    log(f"  dit_mnist label table {tuple(start.shape)}: under NLL bit-equal to its start "
+        f"(params, EMA): {held}; under NLLOriginal after {IMAGE_SHORT_STEPS} steps it "
+        f"moved by {moved[0]:.3e} (params), {moved[1]:.3e} (EMA)")
+    if held != [True, True] or not (moved[0] > 0 and moved[1] > 0):
+        raise AssertionError(f"dit_mnist label table: NLL {held}, NLLOriginal {moved}")
+
+    ckpt = f"{info['paths']['checkpoints']}/{DETERMINISM_STEPS}.pt"
+    gcfg = image_cfg(tmpdir, "dit_mnist", data)
+    gcfg.sampler.num_steps = CFG_STEPS
+    model = trained_model(gcfg, dev, info["paths"]["checkpoints"], DETERMINISM_STEPS)
+    calls = []
+    hook = model.net.register_forward_hook(lambda *a: calls.append(1))
+    want = {"fused_tau_leap_update": 0, "reverse_rates": CFG_STEPS, "euler_posterior": 0}
+    try:
+        guided = one_batch(f"dit_mnist trained {DETERMINISM_STEPS} steps, guided", gcfg,
+                           model, 16, want, label=np.arange(16) % 10, cfg_scale=CFG_SCALE)
+    finally:
+        hook.remove()
+    guided.pop("samples")
+    guided["forwards"] = len(calls)
+    if len(calls) != 2 * (CFG_STEPS + 1):
+        raise AssertionError(f"guided batch: {len(calls)} forwards, expected "
+                             f"{2 * (CFG_STEPS + 1)}")
+    query = "&label=" + ",".join(str(i % 10) for i in range(16)) + f"&cfg_scale={CFG_SCALE}"
+    served = serve_checkpoint(dev, "dit_mnist guided /generate", gcfg, ckpt, 16,
+                              {"reverse_rates": CFG_STEPS}, warmup=False, query=query)
+    return dict(table_held_under_nll=held, table_moved_under_nll_original=moved,
+                train_steps_per_s=info["steps_per_sec"], peak_memory_gb=info["peak_memory_gb"],
+                guided_batch=guided, generate_launches=served[0], generate_seconds=served[1])
+
+
+def slice9_kernels(dev) -> dict:
+    """(f) The kernels against their plain versions at this slice's shapes
+    (fused tau-leap at (16, 3072, 256) and (256, 3072, 256); reverse rates
+    at (16, 3072, 256); the Euler posterior at bin_mnist_hollow's
+    (16, 784, 2)), then each one's time against its bound."""
+    from ctdd_tpu_torch.ops import fused_update as fu
+
+    worst = dict(rate_abs=0.0, rate_row_rel=0.0, post_prob=0.0, post_log=0.0)
+    flipped = 0.0
+    for N in (16, 256):
+        for step in (100, 500, 950):
+            logits, x, qt0, rate, u, h = fused_inputs(N, 3072, 256, step, N + step, dev)
+            for mode, uu in (("poisson", u), ("expected", None)):
+                k = fu.fused_tau_leap_update(logits, x, x, qt0, rate, h, 1e-9, 0,
+                                             mode=mode, u=uu)
+                p = fu.fused_tau_leap_update_plain(logits, x, x, qt0, rate, h, 1e-9, uu,
+                                                   mode=mode)
+                frac = (k != p).float().mean().item()
+                flipped = max(flipped, frac)
+                # a tie in "expected" mode moves the rounded jump by 1; in
+                # "poisson" mode it flips one jump count, which moves the
+                # state by that jump's s - x: the share of states is held
+                far = mode == "expected" and (k - p).abs().max().item() > 1
+                if frac > MAX_FLIP_FRAC or far:
+                    raise AssertionError(f"fused kernel vs plain {mode} N={N} D=3072 "
+                                         f"step={step}: {frac:.2e} of states differ")
+        log(f"  fused tau-leap N={N} D=3072 S=256: poisson(u) and expected agree with "
+            f"plain at three grid points (largest share that differs {flipped:.2e}, "
+            f"allowed {MAX_FLIP_FRAC:.0e})")
+    for N, D, S in ((16, 3072, 256), (16, 784, 2)):
+        for per_sample, fracs in ((True, (0.1, 0.5, 0.95)), (False, (0.5,))):
+            logits, qc, qt0, rc, x, h = rate_inputs(N, D, S, fracs, 3 * N + D, dev, per_sample)
+            hold_rate_kernels(f"N={N} D={D} S={S} "
+                              f"{'per-sample' if per_sample else 'shared'} tables",
+                              logits, qc, qt0, rc, x, h, worst)
+    timing = {"fused_tau_leap_update": {N: fused_timing(N, 3072, 256, dev) for N in (16, 256)},
+              "reverse_rates": {}, "euler_posterior": {}}
+    for key, shape in (("cifar", (16, 3072, 256)), ("binmnist", (16, 784, 2))):
+        for name, t in rate_timing(*shape, dev).items():
+            timing[name][key] = t
+    return dict(worst=worst, fused_flip_frac=flipped, timing=timing)
+
+
+def phase_slice9(dev, tmpdir: str, data_path: str) -> dict:
+    """Phase [17]. (b) tauUnet_cifar10 through train() (twin 20-step runs
+    bit-identical; rate, peak memory, the step's device split), its
+    checkpoint served over /generate (TauL/1000: exactly 1000 reverse-rates
+    launches at (16, 3072, 256)) and K fused steps against plain at D=3072;
+    then (g) the eval CLI's lenet FID of that checkpoint, beside (a) card
+    vs CPU and (c) dit_mnist's label path, whose times are not figures;
+    alone again, (d) uvit_mnist, uvit_cifar10 and dit_mnist's bare steps,
+    (e) bin_mnist_hollow trained and LBJF/1000 (exactly 1000 posterior
+    launches at (16, 784, 2)), and (f) the kernels at this slice's shapes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ctdd_tpu_torch.training.loop import train
+    from ctdd_tpu_torch.utils.device import deterministic_training
+
+    t0 = time.perf_counter()
+    cifar = cifar_like(f"{tmpdir}/cifar_like.npz")
+    data = {"tauUnet_cifar10": cifar, "uvit_cifar10": cifar, "dit_mnist": data_path,
+            "uvit_mnist": data_path, "bin_mnist_hollow": data_path}
+    out = {}
+
+    log("  (b) tauUnet_cifar10 (UNet, 3 x 32 x 32, CTElboLambda) at B=64")
+    cfg = image_cfg(tmpdir, "tauUnet_cifar10", data)
+    out["tauUnet_cifar10"], ckpt_dir = image_training(dev, cfg, cifar)
+    ckpt = f"{ckpt_dir}/{DETERMINISM_STEPS}.pt"
+    steps = cfg.sampler.num_steps
+    launches, seconds = serve_checkpoint(
+        dev, f"tauUnet_cifar10 trained {DETERMINISM_STEPS} steps", cfg, ckpt, 16,
+        {"reverse_rates": steps}, warmup=False)
+    out["tauUnet_cifar10"].update(served_launches=launches, served_seconds=seconds,
+                                  served_samples_per_s=16 / seconds)
+    fcfg = image_cfg(tmpdir, "tauUnet_cifar10", data)
+    fcfg.sampler.use_fused_update = True
+    out["tauUnet_cifar10"]["fused_vs_plain"] = fused_vs_plain_steps(
+        dev, fcfg, trained_model(fcfg, dev, ckpt_dir, DETERMINISM_STEPS))
+
+    log(f"  (g) eval --metric fid --features lenet of that checkpoint ({FID_LENET_SAMPLES} "
+        "samples, TauL/1000), beside (a) and (c)")
+    with ThreadPoolExecutor(1) as pool:
+        fid_run = pool.submit(
+            run_cli, "eval", "--preset", "tauUnet_cifar10", "--ckpt", ckpt, "--metric", "fid",
+            "--features", "lenet", "--samples", str(FID_LENET_SAMPLES), "--batch", "16",
+            "--n-real", "512", "--set", f"data.location={cifar}")
+        log("  (a) full-width logits at B=2, card vs CPU")
+        out["vs_cpu"] = image_vs_cpu(dev)
+        log("  (c) dit_mnist: the label table under NLL and NLLOriginal, a guided batch, "
+            "/generate with labels")
+        out["dit_mnist"] = dit_label_path(dev, tmpdir, data)
+        fid = last_json(fid_run.result())
+    want = {"fused_tau_leap_update": 0, "reverse_rates": 2 * steps, "euler_posterior": 0}
+    log(f"  eval fid lenet tauUnet_cifar10: {fid['value']:.4f} (not a quality figure); "
+        f"launches {fid['kernel_launches']} (expected {want})")
+    if fid["kernel_launches"] != want or not math.isfinite(fid["value"]):
+        raise AssertionError(f"eval fid lenet: {fid}")
+    out["fid_lenet"] = fid
+
+    log("  (d) the bare B=64 steps of uvit_mnist, uvit_cifar10 and dit_mnist, alone, "
+        "deterministic as train()")
+    for preset in ("uvit_mnist", "uvit_cifar10", "dit_mnist"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        with deterministic_training(dev):
+            step = train_step_breakdown(dev, image_cfg(tmpdir, preset, data),
+                                        np.load(data[preset])["x_train"])
+        step["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        log(f"  {preset}: peak device memory {step['peak_memory_gb']:.2f} GB")
+        out.setdefault(preset, {})["step"] = step
+
+    log(f"  (e) bin_mnist_hollow (hollow, D=784, S=2, CatRM) at B=16, {BIN_TRAIN_STEPS} steps; "
+        "LBJF/1000 at batch 16")
+    bcfg = image_cfg(tmpdir, "bin_mnist_hollow", data)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, info = train(bcfg, n_iters=BIN_TRAIN_STEPS, seed=0, device=dev,
+                    log_every=BIN_TRAIN_STEPS)
+    bsteps = bcfg.sampler.num_steps
+    model = trained_model(bcfg, dev, info["paths"]["checkpoints"], BIN_TRAIN_STEPS)
+    lbjf = one_batch(f"bin_mnist_hollow trained {BIN_TRAIN_STEPS} steps", bcfg, model, 16,
+                     {"fused_tau_leap_update": 0, "reverse_rates": 0,
+                      "euler_posterior": bsteps})
+    lbjf.pop("samples")
+    pool = (np.load(data_path)["x_train"] > 127).astype(np.int32)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    with deterministic_training(dev):
+        step = train_step_breakdown(dev, bcfg, pool)
+    out["bin_mnist_hollow"] = dict(train_steps_per_s=info["steps_per_sec"], peak_memory_gb=peak,
+                                   lbjf=lbjf, samples_per_s=16 / lbjf["seconds"], step=step)
+
+    log("  (f) the kernels at this slice's shapes, against plain and timed")
+    out["kernels"] = slice9_kernels(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase [17]: {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2859,6 +3282,9 @@ def main() -> int:
         stage("[16] the rest of the samplers, the EBM and the prefix-conditional path; "
             "determinism of train()")
         slice8 = phase_slice8(dev, tmpdir, data_path, pools)
+        stage("[17] the DiT, U-ViT and CIFAR10 image presets and the label-conditional "
+              "path")
+        slice9 = phase_slice9(dev, tmpdir, data_path)
 
     by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
@@ -2885,7 +3311,16 @@ def main() -> int:
                       slice8["pianoroll_cond"]["conditional_lbjf"]["launches"],
                   **{f"eval mmd ebm_synthetic {name} {EBM_ROUNDS}x{EBM_SAMPLES}":
                      res["kernel_launches"]
-                     for name, res in slice8["ebm_synthetic"]["mmd"].items()}}
+                     for name, res in slice8["ebm_synthetic"]["mmd"].items()},
+                  f"tauUnet_cifar10 trained {DETERMINISM_STEPS} steps n=16":
+                      slice9["tauUnet_cifar10"]["served_launches"],
+                  f"eval fid lenet tauUnet_cifar10 {FID_LENET_SAMPLES}":
+                      slice9["fid_lenet"]["kernel_launches"],
+                  f"dit_mnist guided n=16 {CFG_STEPS} steps":
+                      slice9["dit_mnist"]["guided_batch"]["launches"],
+                  f"dit_mnist guided /generate n=16 {CFG_STEPS} steps":
+                      slice9["dit_mnist"]["generate_launches"],
+                  "bin_mnist_hollow LBJF n=16": slice9["bin_mnist_hollow"]["lbjf"]["launches"]}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -2920,18 +3355,36 @@ def main() -> int:
                                    ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
                                    ("bound_by", "bound_by"))}
 
+    s9 = slice9["kernels"]["timing"]
+
+    def slice9_shapes(name):
+        """This kernel's times at slice 9's shapes (CIFAR10's D=3072 at
+        N=16, and N=256 for the fused kernel; bin_mnist_hollow's S=2)."""
+        return {f"{key}_{field}": t[field]
+                for key, t in s9[name].items()
+                for field in ("shape", "ms", "loop_ms", "plain_ms", "bound_ms", "bound_by")}
+
     record = {"kernels": [
         entry("fused_tau_leap_update", "ctdd_tpu_torch/csrc/fused_tau_leap.cu",
               "ctdd_tpu/ops/fused_update.py:170", max_err, timing[256], timing[16],
-              max_flip_frac=flip_frac,
+              max_flip_frac=max(flip_frac, slice9["kernels"]["fused_flip_frac"]),
               expected_mode_ms=timing[256]["expected_mode_ms"],
-              expected_jumps_per_row=timing[256]["expected_jumps_per_row"]),
+              expected_jumps_per_row=timing[256]["expected_jumps_per_row"],
+              **{f"cifar{k}": v for k, v in slice9_shapes("fused_tau_leap_update").items()}),
         entry("reverse_rates", "ctdd_tpu_torch/csrc/reverse_rates.cu",
-              "ctdd_tpu/ops/pallas_kernels.py:81", rate_err["rate_abs"],
-              rr[256], rr[16], max_row_rel_err=rate_err["rate_row_rel"], **shapes(rr)),
+              "ctdd_tpu/ops/pallas_kernels.py:81", max(rate_err["rate_abs"],
+                                                      slice9["kernels"]["worst"]["rate_abs"]),
+              rr[256], rr[16], max_row_rel_err=max(rate_err["rate_row_rel"],
+                                                   slice9["kernels"]["worst"]["rate_row_rel"]),
+              **shapes(rr), **{k: v for k, v in slice9_shapes("reverse_rates").items()
+                               if k.startswith("cifar")}),
         entry("euler_posterior", "ctdd_tpu_torch/csrc/euler_posterior.cu",
-              "ctdd_tpu/ops/pallas_kernels.py:137", rate_err["post_prob"],
-              ep[256], ep[16], max_log_err=rate_err["post_log"], **shapes(ep)),
+              "ctdd_tpu/ops/pallas_kernels.py:137", max(rate_err["post_prob"],
+                                                       slice9["kernels"]["worst"]["post_prob"]),
+              ep[256], ep[16], max_log_err=max(rate_err["post_log"],
+                                               slice9["kernels"]["worst"]["post_log"]),
+              **shapes(ep), **{k: v for k, v in slice9_shapes("euler_posterior").items()
+                               if k.startswith("binmnist")}),
     ]}
     for k in record["kernels"]:
         if k["launches"] <= 0:
@@ -2941,7 +3394,7 @@ def main() -> int:
         **breakdown}))
     log("serving_lbjf: " + json.dumps({
         "samples_per_s": 16 / served["tauUnet_mnist LBJF corrector"][1],
-        "batch": 16, "steps": 1000, "corrector_steps": 2, **lbjf_breakdown}))
+        "batch": 16, "steps": SERVE_CUT_STEPS, "corrector_steps": 2, **lbjf_breakdown}))
     log("serving_other: " + json.dumps({
         label: {"samples_per_s": 16 / secs, "seconds": secs}
         for label, (_, secs) in served.items()}))
@@ -2952,6 +3405,7 @@ def main() -> int:
     log("hollow: " + json.dumps({**hollow, "card": card_line()}))
     log("maze_sudoku_protein: " + json.dumps({**maze_sudoku, "card": card_line()}))
     log("slice8: " + json.dumps({**slice8, "card": card_line()}))
+    log("slice9: " + json.dumps({**slice9, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

@@ -34,6 +34,11 @@ _PRESETS = {
     "sudoku": "ctdd_tpu_torch.config.presets.sudoku",
     "ebm_synthetic": "ctdd_tpu_torch.config.presets.synthetic_ebm",
     "pianoroll_cond": "ctdd_tpu_torch.config.presets.pianoroll_conditional",
+    "tauUnet_cifar10": "ctdd_tpu_torch.config.presets.cifar10_tau_unet",
+    "dit_mnist": "ctdd_tpu_torch.config.presets.mnist_dit",
+    "uvit_mnist": "ctdd_tpu_torch.config.presets.mnist_uvit",
+    "uvit_cifar10": "ctdd_tpu_torch.config.presets.cifar10_uvit",
+    "bin_mnist_hollow": "ctdd_tpu_torch.config.presets.bin_mnist_hollow",
 }
 
 

@@ -2,8 +2,10 @@
 (`unet_params_from_flax`), the residual MLP (`mlp_params_from_flax`), the
 hollow family and the EBM score functions (`hollow_params_from_flax`), the
 DDSM score networks (`ddsm_params_from_flax`), the sequence transformer
-(`sequence_transformer_params_from_flax`), the FID
-feature nets (`inception_params_from_flax`, `lenet_params_from_flax`,
+(`sequence_transformer_params_from_flax`), DiT, U-ViT and the tauLDR U-Net
+(`dit_params_from_flax`, `uvit_params_from_flax`,
+`tau_unet_params_from_flax`), the FID feature nets
+(`inception_params_from_flax`, `lenet_params_from_flax`,
 `classifier_params_from_flax`); and a whole JAX train state of the UNet
 (`train_state_from_flax`).
 
@@ -27,7 +29,11 @@ port module path; flax's MultiHeadDotProductAttention stores query, key and
 value kernels as (E, H, Dh) and the output kernel as (H, Dh, E), each
 flattened to a Linear weight. So do the DDSM networks' modules; their 1D
 conv kernels (K, in, out) become Conv1d weights (out, in, K), and the
-Fourier projection's `W` is carried as it is.
+Fourier projection's `W` is carried as it is. So do DiT, U-ViT and the
+tauLDR U-Net (`dit_params_from_flax`, `uvit_params_from_flax`,
+`tau_unet_params_from_flax`): their conv kernels HWIO become Conv2d
+weights OIHW, a NiN's (in, out) `W` and U-ViT's `pos_embed` stay as they
+are.
 """
 
 from __future__ import annotations
@@ -130,7 +136,7 @@ def _state_dict_from_flax(tree: Mapping, net, port_name) -> Dict[str, torch.Tens
     for path, a in _flatten(tree).items():
         module, layer, leaf = port_name(path)
         name, value = _leaf(layer, leaf, a)
-        key = f"{module}.{name}"
+        key = f"{module}.{name}" if module else name
         if key not in want:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such parameter")
         if tuple(value.shape) != tuple(want[key]):
@@ -231,29 +237,67 @@ def sequence_transformer_params_from_flax(tree: Mapping, net) -> Dict[str, torch
     return hollow_params_from_flax(renamed(tree), net)
 
 
-def ddsm_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
-    """flax params of `SudokuScoreNetWrapper` or `ProteinScoreNetWrapper` ->
-    the state dict of the port's `net` of the same config. Raises on a leaf
-    that is missing, left over or of the wrong shape."""
+def _by_module_path(tree: Mapping, net, rename=None) -> Dict[str, torch.Tensor]:
+    """The mapping of a port network whose submodules carry flax's names: a
+    flax path (after `rename`, path -> path) less its leaf is a port module
+    path, the leaf converted by the module's kind (Linear, Conv1d, Conv2d,
+    LayerNorm, GroupNorm, Embedding; any other module's own parameter, such
+    as a NiN's `W` or U-ViT's `pos_embed`, is carried as it is)."""
     import torch.nn as nn
 
-    from ctdd_tpu_torch.networks.ddsm import GaussianFourierProjection
-
-    kinds = ((nn.Linear, "dense"), (nn.Conv1d, "conv1d"), (nn.LayerNorm, "norm"),
-             (nn.GroupNorm, "norm"), (GaussianFourierProjection, "param"))
+    kinds = ((nn.Linear, "dense"), (nn.Conv1d, "conv1d"), (nn.Conv2d, "conv"),
+             (nn.LayerNorm, "norm"), (nn.GroupNorm, "norm"), (nn.Embedding, "embed"))
 
     def port_name(path: tuple):
+        bad = KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        path = rename(path) if rename else path
         module = ".".join(path[:-1])
         try:
             mod = net.get_submodule(module)
         except AttributeError:
-            raise KeyError(f"unexpected flax leaf {'/'.join(path)}") from None
+            raise bad from None
         for cls, kind in kinds:
             if isinstance(mod, cls):
                 return module, kind, path[-1]
-        raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        if path[-1] in dict(mod.named_parameters(recurse=False)):
+            return module, "param", path[-1]
+        raise bad
 
     return _state_dict_from_flax(tree, net, port_name)
+
+
+def ddsm_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax params of `SudokuScoreNetWrapper` or `ProteinScoreNetWrapper` ->
+    the state dict of the port's `net` of the same config. Raises on a leaf
+    that is missing, left over or of the wrong shape."""
+    return _by_module_path(tree, net)
+
+
+def dit_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax `DiTWrapper` params (initialised with a label, so that its
+    LabelEmbedder exists) -> the state dict of the port's `DiTWrapper` `net`
+    of the same config. Raises on a leaf that is missing, left over or of
+    the wrong shape."""
+    return _by_module_path(tree, net)
+
+
+def uvit_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax `UViTWrapper` or `UViT` params -> the state dict of the port's
+    `net` of the same config; flax's `CheckpointUViTBlock_i` (with
+    `use_checkpoint`) is the port's `UViTBlock_i`. Raises on a leaf that is
+    missing, left over or of the wrong shape."""
+
+    def rename(path):
+        return tuple(re.sub(r"^CheckpointUViTBlock_", "UViTBlock_", p) for p in path)
+
+    return _by_module_path(tree, net, rename)
+
+
+def tau_unet_params_from_flax(tree: Mapping, net) -> Dict[str, torch.Tensor]:
+    """flax `TauUNetWrapper` params -> the state dict of the port's
+    `TauUNetWrapper` `net` of the same config. Raises on a leaf that is
+    missing, left over or of the wrong shape."""
+    return _by_module_path(tree, net)
 
 
 def inception_params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:

@@ -1,13 +1,17 @@
-"""Image datasets: DiscreteMNIST; and LakhPianoroll.
+"""Image datasets: DiscreteMNIST, DiscreteCIFAR10, BinMNIST; and
+LakhPianoroll.
 
-Counterpart of DiscreteMNIST in ctdd_tpu/data/images.py. It reads the npz
-at cfg.data.location (`x_train`/`y_train` or `images`/`labels`, uint8
-images). With no npz there, it falls back to sklearn's 8x8 digits upsampled
-to the image size where sklearn is installed, as the JAX package does, and
-otherwise raises and names the missing file. LakhPianoroll reads its (N, L)
-npy, or makes the seeded stand-in of data/pianoroll.py where the file is
-absent, as the JAX package does. The other image datasets are ported in a
-later slice.
+Counterpart of ctdd_tpu/data/images.py. DiscreteMNIST reads the npz at
+cfg.data.location (`x_train`/`y_train` or `images`/`labels`, uint8
+images); DiscreteCIFAR10 an npz with `x_train`/`y_train` or
+`images`/`labels`, NCHW or NHWC; BinMNIST a binarized (N, 784) or
+(N, 1, 28, 28) npy, else DiscreteMNIST thresholded at 127. With no file
+there, each falls back to sklearn's 8x8 digits upsampled to the image size
+(grey, repeated over CIFAR10's three channels) where sklearn is installed,
+as the JAX package does, and otherwise raises and names the missing file.
+`data.random_flips` is read by neither package. LakhPianoroll reads its
+(N, L) npy, or makes the seeded stand-in of data/pianoroll.py where the
+file is absent, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,9 +34,17 @@ def _load_mnist_npz(path: str) -> Tuple[np.ndarray, np.ndarray]:
     raise KeyError(f"unrecognized npz keys in {path}")
 
 
-def _digits_standin(n: int, image_size: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-    """sklearn 8x8 digits -> (n, image_size, image_size) uint8 in [0, 255]."""
-    from sklearn.datasets import load_digits
+def _digits_standin(n: int, image_size: int, path: str,
+                    seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """sklearn 8x8 digits -> (n, image_size, image_size) uint8 in [0, 255];
+    without sklearn a FileNotFoundError names `path`, the missing file."""
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError:
+        raise FileNotFoundError(
+            f"no dataset file at {path!r} (data.location) and no sklearn for "
+            "the digits stand-in: put the file there or set data.location"
+        ) from None
 
     X, y = load_digits(return_X_y=True)
     imgs = (X.reshape(-1, 8, 8) * (255.0 / 16.0)).astype(np.uint8)
@@ -55,20 +67,41 @@ def discrete_mnist(cfg, root: Optional[str] = None) -> ArrayDataset:
             imgs, labels = _load_mnist_npz(c)
             break
     if imgs is None:
-        try:
-            import sklearn.datasets  # noqa: F401
-        except ImportError:
-            raise FileNotFoundError(
-                f"no MNIST npz at {path!r} (data.location) and no sklearn for "
-                "the digits stand-in: put mnist.npz there or set "
-                "data.location to an npz with x_train/y_train"
-            ) from None
-        imgs, labels = _digits_standin(int(cfg.data.get("num_samples", 8192)), size)
+        imgs, labels = _digits_standin(int(cfg.data.get("num_samples", 8192)), size, path)
     if imgs.shape[-1] != size:
         reps = int(np.ceil(size / imgs.shape[-1]))
         imgs = np.repeat(np.repeat(imgs, reps, axis=1), reps, axis=2)[:, :size, :size]
     data = imgs[:, None, :, :].astype(np.uint8)  # (N, 1, H, W)
     return ArrayDataset(data, np.asarray(labels).astype(np.int32))
+
+
+@registry.datasets.register(name="DiscreteCIFAR10")
+def discrete_cifar10(cfg, root: Optional[str] = None) -> ArrayDataset:
+    """Ints 0..255, shape (N, 3, 32, 32)."""
+    path = root or cfg.data.get("location", "")
+    if path and os.path.isfile(path):
+        with np.load(path) as f:
+            imgs = f["x_train"] if "x_train" in f else f["images"]
+            labels = f["y_train"] if "y_train" in f else f.get("labels")
+        if imgs.shape[-1] == 3:  # NHWC -> NCHW
+            imgs = imgs.transpose(0, 3, 1, 2)
+    else:
+        grey, labels = _digits_standin(int(cfg.data.get("num_samples", 8192)), 32, path)
+        imgs = np.repeat(grey[:, None, :, :], 3, axis=1)
+    return ArrayDataset(imgs.astype(np.uint8), np.asarray(labels).astype(np.int32))
+
+
+@registry.datasets.register(name="BinMNIST")
+def bin_mnist(cfg, root: Optional[str] = None) -> ArrayDataset:
+    """Binarized MNIST {0, 1}, (N, 1, H, W): the npy at cfg.data.location
+    (no labels), else DiscreteMNIST (from cfg.data.location) above 127."""
+    path = root or cfg.data.get("location", "")
+    if path and os.path.isfile(path) and path.endswith(".npy"):
+        data = np.load(path)
+        size = cfg.data.image_size
+        return ArrayDataset(data.reshape(len(data), 1, size, size).astype(np.uint8))
+    base = discrete_mnist(cfg, root=None)
+    return ArrayDataset((base.data > 127).astype(np.uint8), base.labels)
 
 
 @registry.datasets.register(name="LakhPianoroll")

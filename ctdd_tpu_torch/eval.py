@@ -19,8 +19,11 @@ dataset; `--fid-levels` adds real vs real and noise in the same features),
 maze_acc, sudoku_acc, cond_mmd (a prefix-conditional sampler's samples
 given ground-truth prefixes, beside the data-vs-data floor and the
 shuffled-suffix anchor; on LakhPianoroll also `scale_consistency` and the
-rest fractions), save_samples. `--label` and `--cfg-scale`, and D3PM
-checkpoints need modules of later slices and raise NotImplementedError.
+rest fractions), save_samples. `--label` (class ids cycled over each
+batch) and `--cfg-scale` condition a label-conditional model (DiT); the
+port refuses `--label` on another model and `--cfg-scale` without
+`--label` (ValueError), which JAX's CLI ignores. D3PM checkpoints need a
+module of a later slice and raise NotImplementedError.
 The last line of the output is one JSON object: the metric, its value, and
 the launches of each hand-written kernel.
 """
@@ -52,11 +55,7 @@ def _checkpoint_path(ckpt: str, step) -> str:
     return mgr.path(steps[-1] if step is None else step)
 
 
-def _refuse_unported(args, cfg):
-    if args.label is not None or args.cfg_scale:
-        raise NotImplementedError(
-            "--label/--cfg-scale need a label-conditional model (DiT, ROADMAP "
-            "queue A, the other image networks), ported in a later slice")
+def _refuse_unported(cfg):
     if cfg.loss.name == "d3pm":
         raise NotImplementedError(
             "D3PM checkpoints need the D3PM port (ROADMAP queue A, D3PM), "
@@ -243,10 +242,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0,
                     help="sampling batch size (0 = all at once)")
     ap.add_argument("--label", default=None,
-                    help="comma-separated class labels (a label-conditional "
-                         "model; not ported yet)")
+                    help="comma-separated class labels to condition on "
+                         "(cycled over the sample batch); requires a "
+                         "label-conditional model (e.g. DiT)")
     ap.add_argument("--cfg-scale", type=float, default=0.0,
-                    help="classifier-free guidance scale (not ported yet)")
+                    help="classifier-free guidance scale (0 = plain "
+                         "conditional forward)")
     ap.add_argument("--inception-weights", default=None,
                     help="path to converted InceptionV3 weights npz for FID")
     ap.add_argument("--features", default="auto",
@@ -280,9 +281,13 @@ def main(argv=None):
     from ctdd_tpu_torch.utils.device import resolve_device
 
     cfg = apply_overrides(get_preset(args.preset), parse_overrides(args.set))
-    _refuse_unported(args, cfg)
+    _refuse_unported(cfg)
     device = resolve_device(args.device)
     model = create_model(cfg, device=device)
+    if args.label is None and args.cfg_scale:
+        raise ValueError("--cfg-scale guides a label-conditional forward: give --label")
+    if args.label is not None and not model.has_label:
+        raise ValueError(f"--label: model {cfg.model.name} is not label-conditional")
     path = _checkpoint_path(args.ckpt, args.step)
     ckpt = load_checkpoint(path, map_location=device)
     model.net.load_state_dict(ckpt["ema_params"] if args.use_ema else ckpt["params"])
@@ -292,8 +297,17 @@ def main(argv=None):
 
     sampler = get_sampler(cfg)
 
+    def conditioning(n):
+        return {}
+
+    if args.label is not None:
+        classes = np.asarray([int(c) for c in args.label.split(",")], np.int64)
+
+        def conditioning(n):
+            return dict(label=np.resize(classes, n), cfg_scale=args.cfg_scale)
+
     def sample_fn(generator, n):
-        return sampler.sample(model, model.net, generator, N=n)[0]
+        return sampler.sample(model, model.net, generator, N=n, **conditioning(n))[0]
 
     if args.batch:
         sample_fn = _batched(sample_fn, args.batch, device)

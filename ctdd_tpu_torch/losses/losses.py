@@ -8,6 +8,8 @@ params, generator, batch): the generator draws the times, x_t and x̃ where
 JAX splits a key, and dropout draws from the device's default generator
 (the train step seeds it). The (B, D, S) x (B, S, S) products are
 `torch.einsum`, as the JAX package keeps them outside any Pallas kernel.
+Every loss takes `label` and drops it, as JAX's do, but NLLOriginal, which
+conditions the network on it.
 """
 
 from __future__ import annotations
@@ -144,15 +146,6 @@ def _neg_elbo(qt0, rate, x0, reg_x, x_tilde, p0t_reg, p0t_sig, eps):
     return sig_mean + reg_mean
 
 
-def _no_label(loss, label):
-    if label is not None:
-        raise NotImplementedError(
-            f"{type(loss).__name__} with labels: label-conditional networks "
-            "(DiT, ROADMAP queue A, the other image networks) are ported in a "
-            "later slice"
-        )
-
-
 @registry.losses.register
 class CTElbo:
     """tauLDR continuous-time ELBO + nll_weight·CE."""
@@ -167,7 +160,6 @@ class CTElbo:
 
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True):
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
         neg_elbo, x_logits = _ctelbo_terms(
@@ -188,11 +180,12 @@ class NLLOriginal:
 
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True):
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
         xt = sample_xt(generator, model.transition(ts), x0)
-        logits = model.apply(params, xt, ts, train=train)
+        # the one loss that conditions on the label (a label-conditional
+        # network draws its drop mask from `generator`); the others drop it
+        logits = model.apply(params, xt, ts, label=label, train=train, generator=generator)
         return mean_cross_entropy(logits, x0)
 
 
@@ -209,7 +202,6 @@ class NLL:
 
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True):
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
         x_t, _ = sample_xt_xtilde(generator, model.transition(ts), model.rate(ts), x0)
@@ -230,7 +222,6 @@ class CTElboLambda:
 
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True):
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts = _sample_ts(generator, x0.shape[0], self.min_time, self.max_t)
         neg_elbo, x_logits = _ctelbo_terms(
@@ -278,7 +269,6 @@ class CondCTElbo:
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True, ts=None, samples=None):
         """`ts` and `samples` (x_t, x̃) may be injected."""
-        _no_label(self, label)
         cond, data, ts, qt0, rate, x_t, x_tilde = _cond_corrupt(
             model, generator, minibatch, self.min_time, self.condition_dim, ts, samples)
         reg_x = x_tilde if self.one_forward_pass else x_t
@@ -311,7 +301,6 @@ class CondNLL:
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True, ts=None, samples=None):
         """`ts` and `samples` (x_t, x̃) may be injected."""
-        _no_label(self, label)
         cond, data, ts, _, _, x_t, x_tilde = _cond_corrupt(
             model, generator, minibatch, self.min_time, self.condition_dim, ts, samples)
         model_in = torch.cat([cond, x_tilde if self.one_forward_pass else x_t], dim=1)
@@ -389,7 +378,6 @@ class _SDDMBase:
         self.one_forward_pass = cfg.loss.one_forward_pass
 
     def _terms(self, model, params, generator, minibatch, label, train):
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts = _sample_ts(generator, x0.shape[0], self.min_time, 1.0, clamp_hi=0.99999)
         return x0, _sddm_elbo_terms(self.cfg, model, params, generator, x0, ts,
@@ -449,7 +437,6 @@ class _CatRMBase:
 
     def _terms(self, model, params, generator, minibatch, label, train):
         """(x0, logits, the summed ratio-matching loss over B)."""
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         B = x0.shape[0]
         ts = _sample_ts(generator, B, self.min_time, self.max_t, clamp_hi=self.clamp_hi)
@@ -547,7 +534,6 @@ class EBMAux:
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True, ts=None, samples=None):
         """`ts` and `samples` (x_t,) may be injected."""
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts, xt = _ebm_draws(model, generator, x0, self.min_time, ts, samples)
         logits = ebm_all_mutation_logits(model, params, xt, ts, self.S, train=train)
@@ -567,7 +553,6 @@ class BinEBMAux:
     def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
                   train=True, ts=None, samples=None):
         """`ts` and `samples` (x_t,) may be injected."""
-        _no_label(self, label)
         x0 = _flatten_batch(minibatch)
         ts, xt = _ebm_draws(model, generator, x0, self.min_time, ts, samples)
         logits = bin_ebm_flip_logits(model, params, xt, ts, train=train)

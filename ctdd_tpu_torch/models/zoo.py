@@ -4,8 +4,9 @@ Counterpart of ctdd_tpu/models/zoo.py, for the entries built on the UNet
 wrapper (`_unet_paul`), the residual MLP (`_residual_mlp`), the hollow
 family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`), the DDSM
 score networks (`_sudoku`, `_protein`), the sequence transformer
-(`_sequence_transformer`) and the binary transformer EBM (`_binary_ebm`).
-Registered names match the JAX zoo so its configs resolve unchanged.
+(`_sequence_transformer`), the binary transformer EBM (`_binary_ebm`), DiT
+(`_dit`), U-ViT (`_uvit`) and the tauLDR U-Net (`_tau_unet`). Registered
+names match the JAX zoo so its configs resolve unchanged.
 """
 
 from __future__ import annotations
@@ -77,6 +78,24 @@ def _binary_ebm(cfg):
     return BinaryTransformerScoreFunc(cfg)
 
 
+def _dit(cfg):
+    from ctdd_tpu_torch.networks.dit import DiTWrapper
+
+    return DiTWrapper(cfg)
+
+
+def _uvit(cfg):
+    from ctdd_tpu_torch.networks.uvit import UViTWrapper
+
+    return UViTWrapper(cfg)
+
+
+def _tau_unet(cfg):
+    from ctdd_tpu_torch.networks.tau_unet import TauUNetWrapper
+
+    return TauUNetWrapper(cfg)
+
+
 def _sudoku(cfg):
     from ctdd_tpu_torch.networks.ddsm import SudokuScoreNetWrapper
 
@@ -91,6 +110,9 @@ def _protein(cfg):
 
 _ZOO = {
     # name                                   (network, process)
+    "GaussianUViTEMA":                        (_uvit, "GaussianTargetRate"),
+    "GaussianDiTEMA":                         (_dit, "GaussianTargetRate"),
+    "GaussianTargetRateImageX0PredEMA":       (_tau_unet, "GaussianTargetRate"),
     "UniformRateImageX0PredEMA":              (_unet_paul, "UniformRate"),
     "GaussianTargetRateImageX0PredEMAPaul":   (_unet_paul, "GaussianTargetRate"),
     "UniformRateUnetEMA":                     (_unet_paul, "UniformRate"),
@@ -114,12 +136,18 @@ _ZOO = {
 }
 
 
+# label-conditional networks: only DiT carries a LabelEmbedder (the other
+# wrappers take no label, or take it and ignore it)
+_LABEL_MODELS = frozenset({"GaussianDiTEMA"})
+
+
 def _make_entry(name, make_net, process_name):
     def build(cfg, device=None) -> DiffusionModel:
         # the process name is bound into the config, as the JAX zoo does
         if "rate_name" not in cfg.model:
             cfg.model.rate_name = process_name
-        return compose(cfg, make_net(cfg), device=device)
+        return compose(cfg, make_net(cfg), device=device,
+                       has_label=name in _LABEL_MODELS)
 
     build.__name__ = name
     return build

@@ -30,6 +30,11 @@ eager Python loop over the same float32 grid.
   shared (S, S) table, and ConditionalLBJF's update through the posterior
   kernel.
 
+- Labels: `sample(label=, cfg_scale=)` binds the class ids into the model
+  handle (`bind_label`) for every step and the final denoise, guided in
+  logit space when cfg_scale > 0 (two network forwards a step, the null
+  label at row S); the conditional samplers take them the same way.
+
 Randomness comes from an explicit `torch.Generator` on the model's device:
 it draws x_T, the uniforms and Gumbel noise of the unfused updates and, once
 per batch, the base word of the fused kernel's Philox key (the second word
@@ -37,6 +42,8 @@ is the step index).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -223,6 +230,20 @@ def _denoise_argmax(model, params, x, min_t, N):
     return torch.argmax(p, dim=-1).to(torch.int32)
 
 
+def bind_label(model, label, cfg_scale: float, S: int):
+    """`model` with `label` bound for every forward (classifier-free guided
+    when `cfg_scale` > 0, the null label being the LabelEmbedder's row S);
+    `model` itself without a label, whatever `cfg_scale`. A model that is
+    not label-conditional refuses a label."""
+    if label is None:
+        return model
+    if not model.has_label:
+        raise ValueError(f"model {model.cfg.model.name} is not label-conditional")
+    label = torch.as_tensor(np.asarray(label), dtype=torch.long, device=model.device)
+    return dataclasses.replace(model, bound_label=label, cfg_scale=float(cfg_scale),
+                               null_label=S)
+
+
 class _SamplerBase:
     """Common config unpack shared by the registered samplers."""
 
@@ -328,12 +349,10 @@ class _SamplerBase:
                label=None, cfg_scale: float = 0.0):
         """N samples and the per-step change rates, as numpy arrays.
 
-        `generator` must live on the model's device."""
-        if label is not None or cfg_scale:
-            raise NotImplementedError(
-                "label-conditional sampling and CFG belong to DiT, ported in "
-                "a later slice"
-            )
+        `generator` must live on the model's device. `label` (N class ids)
+        and `cfg_scale` condition every network call, the final denoise
+        included, on a label-conditional model (`bind_label`)."""
+        model = bind_label(model, label, cfg_scale, self.S)
         x, traces = self._sample_loop(model, params, generator, N)
         return x.cpu().numpy().astype(int), traces.cpu().numpy()
 
@@ -694,11 +713,13 @@ class _ConditionalBase(_SamplerBase):
 
     @torch.inference_mode()
     def sample(self, model, params, generator: torch.Generator, N: int,
-               conditioner=None):
+               conditioner=None, label=None, cfg_scale: float = 0.0):
         """N samples (N, total_D) given `conditioner` (N, condition_dim)
-        ints; `generator` lives on the model's device."""
+        ints; `generator` lives on the model's device; `label` and
+        `cfg_scale` as the base's."""
         if conditioner is None or conditioner.shape[0] != N:
             raise ValueError(f"{type(self).__name__} needs a conditioner of {N} rows")
+        model = bind_label(model, label, cfg_scale, self.S)
         conditioner = torch.as_tensor(np.asarray(conditioner), dtype=torch.int32,
                                       device=model.device)
         x = get_initial_samples(generator, N, self.sample_D, self.S, self.initial_dist,

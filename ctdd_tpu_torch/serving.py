@@ -29,7 +29,7 @@ class SamplerService:
         self.cfg = cfg
         self.batch = batch
         self.model = create_model(cfg, device=self.device)
-        self.has_label = False
+        self.has_label = self.model.has_label
         ckpt = load_checkpoint(ckpt_path, map_location=self.device)
         self.model.net.load_state_dict(
             ckpt["ema_params"] if use_ema else ckpt["params"]
@@ -43,19 +43,24 @@ class SamplerService:
     def warmup(self):
         """Build the kernels and run one batch ahead of the first request."""
         self._generate_batch(
-            torch.Generator(device=self.device).manual_seed(0)
+            torch.Generator(device=self.device).manual_seed(0),
+            label=[0] if self.has_label else None,
         )
 
-    def _generate_batch(self, generator) -> np.ndarray:
+    def _generate_batch(self, generator, label=None, cfg_scale: float = 0.0) -> np.ndarray:
+        if label is not None:
+            # the class ids cycled over the batch
+            label = np.resize(np.asarray(label, np.int64), self.batch)
         samples, _ = self.sampler.sample(
-            self.model, self.model.net, generator, N=self.batch
+            self.model, self.model.net, generator, N=self.batch, label=label,
+            cfg_scale=cfg_scale,
         )
         return samples
 
     def generate(self, n: int, label=None, cfg_scale: float = 0.0) -> np.ndarray:
-        """n samples from fixed-size batches. `label` needs a
-        label-conditional model (none is ported yet); `cfg_scale` only acts
-        with a label and is ignored without one."""
+        """n samples from fixed-size batches. `label`, a list of class ids
+        cycled over each batch, needs a label-conditional model (DiT);
+        `cfg_scale` only acts with a label and is ignored without one."""
         if label is not None and not self.has_label:
             raise ValueError(
                 f"model {self.cfg.model.name} is not label-conditional"
@@ -67,7 +72,7 @@ class SamplerService:
                 sub = int(torch.randint(0, 2**62, (1,), generator=self._gen,
                                         device=self.device).item())
             gen = torch.Generator(device=self.device).manual_seed(sub)
-            chunks.append(self._generate_batch(gen))
+            chunks.append(self._generate_batch(gen, label=label, cfg_scale=cfg_scale))
             produced += self.batch
         return np.concatenate(chunks, axis=0)[:n]
 

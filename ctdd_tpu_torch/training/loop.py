@@ -12,10 +12,12 @@ the device trains when `data.stream_async` is on (the default for a period
 above 1); pools are keyed by the absolute epoch, so a resume replays the
 stream. On a CUDA device cuDNN and the attention backward run
 deterministic for the whole run.
-Sample grids are saved as `samples_<step>.npy` (the PNG grid and the
-loss-curve PNG wait for the loggers port). Not ported yet, and refused with
-NotImplementedError: the label-conditional path, D3PM and on-device
-augmentation (`data.use_augm`).
+A label-conditional model (DiT) over a labelled dataset trains with the
+batch's labels (only NLLOriginal conditions on them) and draws its grid
+one class per row. Sample grids are saved as `samples_<step>.npy` (the PNG
+grid and the loss-curve PNG wait for the loggers port). Not ported yet, and
+refused with NotImplementedError: D3PM and on-device augmentation
+(`data.use_augm`).
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ def _refuse_unported(cfg, model):
     unported = {
         "loss.name=d3pm (D3PM)": cfg.loss.name == "d3pm",
         "data.use_augm (on-device augmentation)": bool(cfg.data.get("use_augm", False)),
-        "a label-conditional model": bool(getattr(model, "has_label", False)),
         f"{type(model.net).__name__} (no init_weights)": not hasattr(model.net, "init_weights"),
     }
     named = [k for k, v in unported.items() if v]
@@ -129,11 +130,14 @@ class PoolStream:
             self._thread = None
 
 
-def _save_sample_grid(model, state, sampler, out_dir: str, step: int,
+def _save_sample_grid(cfg, model, state, sampler, out_dir: str, step: int,
                       n_samples: int = 16, dataset=None) -> Optional[str]:
     """Sample with the EMA weights (seeded by the step); save the states. A
-    prefix-conditional sampler takes the first `n_samples` training
-    prefixes, and is skipped where the dataset holds fewer."""
+    label-conditional model samples one class per row (`data.num_classes`,
+    10 by default; `sampler.cfg_scale`, 0 by default): trained with a real
+    or the null label embedding on every forward, it never sees a forward
+    without one. A prefix-conditional sampler takes the first `n_samples`
+    training prefixes, and is skipped where the dataset holds fewer."""
     gen = torch.Generator(device=model.device).manual_seed(step)
     if getattr(sampler, "condition_dim", None):
         if dataset is None or len(dataset) < n_samples:
@@ -142,7 +146,12 @@ def _save_sample_grid(model, state, sampler, out_dir: str, step: int,
         samples = sampler.sample(model, state.ema_params, gen, N=n_samples,
                                  conditioner=prefixes[:, :sampler.condition_dim])
     else:
-        samples, _ = sampler.sample(model, state.ema_params, gen, N=n_samples)
+        kwargs = {}
+        if model.has_label:
+            n_classes = int(cfg.data.get("num_classes", 10))
+            kwargs = dict(label=np.arange(n_samples) % n_classes,
+                          cfg_scale=float(cfg.sampler.get("cfg_scale", 0.0)))
+        samples, _ = sampler.sample(model, state.ema_params, gen, N=n_samples, **kwargs)
     path = os.path.join(out_dir, f"samples_{step}.npy")
     np.save(path, samples)
     return path
@@ -205,9 +214,12 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
     # stream_fresh: a fresh pool every `stream_refresh_period` epochs, so a
     # long run sees the reference's fresh-data distribution (its maze and
     # sudoku datasets generate a board per item) instead of cycling one pool
+    # the label-conditional path: only a label-capable network over a
+    # labelled dataset takes the batch's labels
+    has_label = model.has_label and dataset.labels is not None
     stream = None
     if (device_data and bool(cfg.data.get("stream_fresh", False))
-            and hasattr(dataset, "regenerate")):
+            and hasattr(dataset, "regenerate") and not has_label):
         period = max(1, int(cfg.data.get("stream_refresh_period", 1)))
         stream = PoolStream(dataset, max(1, len(dataset) // int(cfg.data.batch_size)),
                             period, device,
@@ -215,8 +227,10 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
     if device_data:
         data = torch.from_numpy(
             dataset.data.reshape(len(dataset), -1).astype(np.int32)).to(device)
+        if has_label:
+            data = (data, torch.from_numpy(np.asarray(dataset.labels, np.int64)).to(device))
         step_fn = make_device_data_step(model, loss, tx, cfg.data.batch_size,
-                                        ema_decay=ema_decay)
+                                        ema_decay=ema_decay, has_label=has_label)
     else:
         batches = iterate_batches(dataset, cfg.data.batch_size,
                                   shuffle=cfg.data.get("shuffle", True), seed=seed)
@@ -264,8 +278,11 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
             if device_data:
                 state, lv = step_fn(state, data, seed)
             else:
-                batch, _ = next(batches)
-                state, lv = step_fn(state, torch.from_numpy(batch).to(device), seed)
+                batch, label = next(batches)
+                if has_label:
+                    label = torch.from_numpy(np.asarray(label, np.int64)).to(device)
+                state, lv = step_fn(state, torch.from_numpy(batch).to(device), seed,
+                                    label if has_label else None)
             step_losses.append(lv)
             if prof is not None and it == profile_steps[1]:
                 _sync(device)
@@ -287,7 +304,7 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
                 # the loss history is durable at every checkpoint
                 writer.flush()
             if sampler is not None and (it + 1) % sample_freq == 0:
-                _save_sample_grid(model, state, sampler, paths["pngs"], it + 1,
+                _save_sample_grid(cfg, model, state, sampler, paths["pngs"], it + 1,
                                   dataset=dataset)
             t_aside += time.perf_counter() - t0
         _sync(device)

@@ -89,19 +89,21 @@ def make_train_step(model, loss, tx, ema_decay: float = 0.0) -> Callable:
 
 
 def make_device_data_step(model, loss, tx, batch_size: int,
-                          ema_decay: float = 0.0) -> Callable:
+                          ema_decay: float = 0.0, has_label: bool = False) -> Callable:
     """`step(state, data, seed) -> (state, loss)` over a dataset on the
     device, (N, D) int: the batch indices are drawn on the device, uniform
-    with replacement, from the step's generator."""
+    with replacement, from the step's generator. With `has_label`, `data`
+    is an (x, labels) pair gathered with the same indices."""
     loss_fn = make_loss_fn(model, loss)
 
     def step(state: TrainState, data, seed: int):
-        gen = step_generator(seed, state.step, data.device)
-        idx = torch.randint(0, data.shape[0], (batch_size,), generator=gen,
-                            device=data.device)
-        batch = data[idx]
+        x = data[0] if has_label else data
+        gen = step_generator(seed, state.step, x.device)
+        idx = torch.randint(0, x.shape[0], (batch_size,), generator=gen, device=x.device)
+        batch = x[idx]
+        label = data[1][idx] if has_label else None
         value, grads = value_and_grad(
-            lambda p: loss_fn(p, batch, gen, None, state.step), state.params)
+            lambda p: loss_fn(p, batch, gen, label, state.step), state.params)
         return apply_update(state, value, grads, tx, ema_decay)
 
     return step

@@ -151,7 +151,8 @@ def test_oracle_converges_to_class_zero(fused, exact_poisson, loss_name):
 
 def test_later_slices_raise_not_implemented():
     """A live corrector constructs and runs (its steps follow every
-    predictor step at or below the entry time); labels still wait for DiT."""
+    predictor step at or below the entry time); a label is refused by a
+    model that is not label-conditional."""
     _, tcfg = flagship_cfgs("tiny")
     tcfg.sampler.num_steps = 10
     tcfg.sampler.num_corrector_steps = 3
@@ -169,5 +170,5 @@ def test_later_slices_raise_not_implemented():
     assert 0 < len(live) < 10 and calls == [t for t in live for _ in range(3)]
     assert samples.shape == (2, 64) and changes.shape == (10,)
     assert samples.min() >= 0 and samples.max() < tcfg.data.S
-    with pytest.raises(NotImplementedError, match="DiT"):
+    with pytest.raises(ValueError, match="not label-conditional"):
         sampler.sample(model, model.net, torch.Generator(), 2, label=[0, 1])

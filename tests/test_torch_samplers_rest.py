@@ -256,14 +256,14 @@ def test_samplers_resolve_as_in_jax(name):
 
 
 def test_the_port_has_twenty_presets():
-    """The eighteen of slices 1-7 and this slice's two; every one is a JAX
-    preset."""
+    """The eighteen of slices 1-7 and slice 8's two stay (later slices add
+    theirs); every one is a JAX preset."""
     from ctdd_tpu.config.presets import preset_names as jax_preset_names
     from ctdd_tpu_torch.config.presets import preset_names
     from test_torch_maze_presets import EARLIER, HOLLOW, NEW
 
-    assert sorted(preset_names()) == sorted(NEW + HOLLOW + EARLIER
-                                            + ["ebm_synthetic", "pianoroll_cond"])
+    twenty = set(NEW + HOLLOW + EARLIER + ["ebm_synthetic", "pianoroll_cond"])
+    assert len(twenty) == 20 and twenty <= set(preset_names())
     assert set(preset_names()) <= set(jax_preset_names())
 
 
