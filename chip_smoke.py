@@ -54,8 +54,9 @@ Phases (any fault exits non-zero; nothing is caught):
               steps, both rate kernels vs plain at N=4096, then its MMD at the
               reference protocol (25 x 4096, LBJF/100; 2500 launches of each)
               between data vs data and uniform bits; (c) FIDs of [12]'s
-              checkpoint (256 fused TauL/500 samples, 500 launches per eval)
-              with trained, lenet and Inception features; (d) the bench at
+              checkpoint (256 fused TauL/500 samples against 2048 real
+              images, 500 launches per eval) with trained, lenet and
+              Inception features; (d) the bench at
               50 sampler steps (its bf16 train step included)
  14. hollow   the SDDM hollow family at full width: (a) holvisual_mnist
               (D=784, S=256, 2 x 6 layers, attention readout) logits card vs
@@ -65,7 +66,7 @@ Phases (any fault exits non-zero; nothing is caught):
               Euler-posterior launches, none of the reverse rates); (d)
               hollow_synthetic (ScoreElbo) and bert_synthetic (CTElbo)
               trained 300 steps by the train CLI and scored by the eval
-              CLI's MMD (3 x 4096) with exact launch counts; (e) the
+              CLI's MMD (1 x 4096) with exact launch counts; (e) the
               flagship's bf16 logits vs float32 on the card, and its bf16
               train step
  15. maze     the maze, sudoku and protein presets at full width: (a) the
@@ -121,6 +122,22 @@ Phases (any fault exits non-zero; nothing is caught):
               batch 16 (exactly 1000 posterior launches at (16, 784, 2));
               (f) the kernels against plain and timed at these shapes; (g)
               the eval CLI's lenet FID of (b)'s checkpoint (32 samples)
+ 18. d3pm     the D3PM baseline at full width and on-device augmentation:
+              (a) each preset's tables on the card bit-equal to the host's;
+              at B=2, t = (T-1, 0), the posterior logits (both branches),
+              p_logits and the kl, cross-entropy and hybrid losses with
+              injected noise, card vs CPU, with a TF32 control; (b)
+              mnist_d3pm twice through train() (20 steps at B=64,
+              bit-identical), one run with its in-loop TauL grid (100 steps,
+              on the ratio rate path as in JAX: no kernel); synthetic_d3pm 300 steps
+              (its loss falls), protein_maze_d3pm 20 steps through its fresh
+              pool, both printing the no-grid line; (c) the eval CLI,
+              ancestral: synthetic_d3pm's MMD (1 x 4096, T=500) between data
+              vs data and uniform bits, protein_maze_d3pm's maze_acc (64,
+              T=1000), one mnist_d3pm batch of 16 (T=1000); (d) rotation and
+              flip card vs CPU, and tauUnet_cifar10 and dit_mnist trained 10
+              steps with data.use_augm; (e) an mnist_d3pm ancestral step's
+              breakdown at batch 16
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -141,6 +158,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1409,7 +1427,8 @@ def phase_training(dev, tmpdir, data_path) -> dict:
 # ---------------------------------------------------------------------------
 
 INCEPTION_TOL = 1e-5  # (a) features, card (f32, TF32 off) vs CPU, share of the largest |feature|
-FID_SAMPLES, FID_REAL = 256, 4096  # (c) sampled images (one batch), real images
+# (c) sampled images (one batch), real images (4096 until phase [18] came: cut for time)
+FID_SAMPLES, FID_REAL = 256, 2048
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1531,8 +1550,6 @@ def cli_mmd(dev, tmpdir: str, preset: str, rounds: int, trained: tuple = None) -
     weights, the preset's sampler, all at once) with its exact launch
     counts; held between data vs data and uniform random bits vs data."""
     from ctdd_tpu_torch.config.presets import get_preset
-    from ctdd_tpu_torch.data.loaders import get_dataset
-    from ctdd_tpu_torch.metrics.mmd import eval_mmd
     from ctdd_tpu_torch.models.base import create_model
     from ctdd_tpu_torch.sampling.samplers import get_sampler
     from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
@@ -1567,12 +1584,7 @@ def cli_mmd(dev, tmpdir: str, preset: str, rounds: int, trained: tuple = None) -
     want = {"fused_tau_leap_update": 0,
             "reverse_rates": rounds * per_round if sampler.rate_param == "p0t" else 0,
             "euler_posterior": rounds * per_round}
-    dataset = get_dataset(cfg)
-    uniform = eval_mmd(cfg, lambda g, n: torch.randint(0, 2, (n, D), generator=g, device=dev),
-                       dataset, rounds, samples, device=dev)
-    data = eval_mmd(cfg, lambda g, n: dataset.data[
-        torch.randint(0, len(dataset), (n,), generator=g, device=dev).cpu().numpy()],
-        dataset, rounds, samples, device=dev)
+    uniform, data = mmd_levels(cfg, dev, rounds, samples)
     out = dict(preset=preset, loss=cfg.loss.name, rate_param=sampler.rate_param,
                mmd=res["value"], uniform_bits_mmd=uniform, data_vs_data_mmd=data,
                rounds=rounds, samples=samples, sampler_steps=len(ts),
@@ -1592,8 +1604,8 @@ def cli_mmd(dev, tmpdir: str, preset: str, rounds: int, trained: tuple = None) -
 
 def phase_fid(ckpt_dir: str, data_path: str, npz: str) -> dict:
     """(c) The eval CLI's FID of [12]'s trained flagship: 256 samples in one
-    batch of fused TauL/FID_STEPS (that many launches per eval) against 4096 stand-in
-    images, with trained and lenet features, each above real vs real (256
+    batch of fused TauL/FID_STEPS (that many launches per eval) against FID_REAL
+    stand-in images, with trained and lenet features, each above real vs real (256
     other stand-in images) and below seeded uniform noise, both levels taken
     by the same eval in the same features (`--fid-levels`); then with
     Inception on (a)'s random-weight npz (a check of the pipeline at 299,
@@ -1661,8 +1673,9 @@ def phase_bench(steps: int) -> dict:
 
 LOGIT_FLOOR_MULT = 6.0  # (a) hollow logits, card vs CPU, in units of the CPU's float32 error
 HOLLOW_TRAIN_STEPS = 50  # (b)
-# (d) MMD rounds of 4096 samples: the protocol's 25; 5 until phase [15] came, 3 until [16]
-SYNTH_ROUNDS = 2  # cut for time
+# (d) and [18](c): MMD rounds of 4096 samples: the protocol's 25; 5 until phase [15]
+# came, 3 until [16], 2 until [18]
+SYNTH_ROUNDS = 1  # cut for time
 BF16_FLOOR_MULT = 2.0  # (e) card bf16 vs f32 logits, in units of the CPU's own bf16 vs f32
 BF16_CONTROL_NOISE = 0.01  # (e) the control: weights perturbed by this relative noise
 
@@ -3189,6 +3202,428 @@ def phase_slice9(dev, tmpdir: str, data_path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase [18]: the D3PM baseline and on-device augmentation
+# ---------------------------------------------------------------------------
+
+D3PM_PRESETS = ("mnist_d3pm", "synthetic_d3pm", "protein_maze_d3pm")
+D3PM_GRID_STEPS = 100  # (b) mnist_d3pm's in-loop TauL grid: 100 of the preset's 1000 steps
+D3PM_SYNTH_STEPS = 300  # (b) synthetic_d3pm (the preset's 200k, cut)
+D3PM_MAZE_STEPS = 20  # (b) protein_maze_d3pm (the preset's 300k, cut)
+D3PM_MAZE_SAMPLES = 64  # (c) maze_acc, ancestral at T=1000
+D3PM_ULP_FLOOR = 2.0**-23  # (a) the CPU's float32 error is taken as at least one ulp
+AUGM_STEPS = 10  # (d) tauUnet_cifar10 and dit_mnist with data.use_augm
+AUGM_TIE_BAND = 1e-4  # (d) a source coordinate this close to a half-integer is a tie
+D3PM_PROFILE_STEPS = 10  # (e) ancestral steps timed and traced
+GRID_OFF = "in-loop sample grids disabled: model has no CTMC process"
+
+
+def d3pm_cfg(tmpdir: str, preset: str, data_path: str, run: str = ""):
+    """`preset` at its full width (mnist_d3pm on the MNIST-layout stand-in),
+    one checkpoint at the end; the preset's own sample_freq."""
+    from ctdd_tpu_torch.config.presets import get_preset
+
+    cfg = get_preset(preset)
+    if preset == "mnist_d3pm":
+        cfg.data.location = data_path
+    cfg.save_location = f"{tmpdir}/{preset}{run}"
+    cfg.saving.checkpoint_freq = 10**6
+    return cfg
+
+
+def hold_d3pm(label: str, run) -> dict:
+    """`run(where, dtype)` -> {name: CPU tensor}: each value, card (float32,
+    TF32 off) against the CPU's float32, within LOGIT_FLOOR_MULT times the
+    CPU's own float32 error against float64 (at least D3PM_ULP_FLOOR), as
+    shares of its largest |value|; the card with TF32 on is the control,
+    which must break at least one of the limits."""
+    from ctdd_tpu_torch.utils.device import tf32, tf32_off
+
+    with torch.inference_mode():
+        ref, ref64 = run("cpu", torch.float32), run("cpu", torch.float64)
+        with tf32_off():
+            got = run("cuda", torch.float32)
+        with tf32(True):
+            got_tf32 = run("cuda", torch.float32)
+    out, broken = {}, []
+    for name in ref:
+        scale = ref64[name].abs().max().item()
+        floor = max((ref[name] - ref64[name]).abs().max().item() / scale, D3PM_ULP_FLOOR)
+        err = (got[name] - ref[name]).abs().max().item() / scale
+        err_tf32 = (got_tf32[name] - ref[name]).abs().max().item() / scale
+        tol = LOGIT_FLOOR_MULT * floor
+        out[name] = dict(rel_err=err, floor=floor, tol=tol, tf32_rel_err=err_tf32)
+        log(f"  {label} {name} {tuple(got[name].shape)}: card vs CPU {err:.3e} (tol {tol:.3e} "
+            f"= {LOGIT_FLOOR_MULT:g} x the CPU's float32 error {floor:.3e}); TF32 on "
+            f"{err_tf32:.3e}")
+        if not (got[name].shape == ref[name].shape and math.isfinite(err) and err <= tol):
+            raise AssertionError(f"{label} {name}: card vs CPU {err} above {tol}")
+        if err_tf32 > tol:
+            broken.append(name)
+    log(f"  {label}: the TF32 control breaks the limits of {broken} (must break one)")
+    if not broken:
+        raise AssertionError(f"{label}: the limits pass TF32 values")
+    return out
+
+
+def d3pm_vs_cpu(dev) -> dict:
+    """(a) Each preset at full width, B=2, t = (T-1, 0), the weights of
+    `perturbed_pair`: its tables on the card bit-equal to the host's; then
+    the posterior logits of both branches, p_logits and the three losses
+    with injected Gumbel noise, held by `hold_d3pm` (float64 reference: the
+    CPU's network in float64 on the float32 tables cast to float64)."""
+    import copy
+
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.d3pm.diffusion import make_diffusion
+
+    out = {}
+    for preset in D3PM_PRESETS:
+        cfg = get_preset(preset)
+        # perturbed: the UNet's final layer starts at ~0, which hides the network
+        cpu, gpu, net64 = perturbed_pair(cfg, dev)
+        dc, dg = make_diffusion(cfg.model, device="cpu"), make_diffusion(cfg.model, device=dev)
+        names = ("q_onestep_mats", "q_mats", "transpose_q_onestep_mats")
+        if not all(torch.equal(getattr(dg, n).cpu(), getattr(dc, n)) for n in names):
+            raise AssertionError(f"{preset}: the tables on the card differ from the host's")
+        d64 = copy.copy(dc)
+        d64.q_onestep_mats, d64.q_mats = dc.q_onestep_mats.double(), dc.q_mats.double()
+        d64.transpose_q_onestep_mats = d64.q_onestep_mats.transpose(1, 2)
+        T, D, S = cfg.model.num_timesteps, cfg.model.concat_dim, cfg.data.S
+        g = torch.Generator().manual_seed(7)
+        x0, xt = (torch.randint(0, S, (2, D), generator=g) for _ in range(2))
+        t = torch.tensor([T - 1, 0])
+        logits = 3.0 * torch.randn((2, D, S), generator=g)
+        u = torch.rand((2, D, S), generator=g).clamp_min(float(np.finfo(np.float32).tiny))
+        gumbel = -torch.log(-torch.log(u))
+
+        def run(where, dtype):
+            diff = dg if where == "cuda" else (dc if dtype == torch.float32 else d64)
+            model = gpu if where == "cuda" else cpu
+            net = {"cuda": gpu.net, "cpu": cpu.net if dtype == torch.float32 else net64}[where]
+            on = dev if where == "cuda" else "cpu"
+
+            def fn(x, ti):
+                return model.apply(net, x, ti)
+
+            res = dict(
+                posterior_x_start=diff.q_posterior_logits(x0.to(on), xt.to(on), t.to(on), False),
+                posterior_logits=diff.q_posterior_logits(logits.to(on, dtype), xt.to(on),
+                                                         t.to(on), True),
+                p_logits=diff.p_logits(fn, xt.to(on), t.to(on))[0])
+            for loss_type in ("kl", "cross_entropy_x_start", "hybrid"):
+                diff.loss_type = loss_type
+                res[f"loss_{loss_type}"] = diff.training_losses(
+                    fn, x0.to(on), t.to(on), gumbel=gumbel.to(on, dtype))
+            return {k: v.double().cpu() for k, v in res.items()}
+
+        mb = sum(getattr(dc, n).numel() * 4 for n in names[:2]) / 1e6
+        log(f"  {preset} ({type(cpu.net).__name__}, T={T}, D={D}, S={S}): tables on the card "
+            f"bit-equal to the host's ({mb:.1f} MB)")
+        out[preset] = hold_d3pm(preset, run)
+    return out
+
+
+def d3pm_training(dev, tmpdir: str, data_path: str) -> dict:
+    """(b) mnist_d3pm twice through train(), DETERMINISM_STEPS steps at B=64
+    from seed 0, bit-identical; run (a) with its in-loop TauL grid at the last
+    step (D3PM_GRID_STEPS steps), run (b) without. The grid takes the ratio
+    rate path, as JAX's does for a loss outside the tauLDR family (loss.name
+    d3pm): plain torch, no kernel launch. synthetic_d3pm (its loss falls) and
+    protein_maze_d3pm (through its fresh pool), each printing JAX's no-grid
+    line."""
+    import contextlib
+    import io
+
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+    from ctdd_tpu_torch.training.loop import train
+
+    steps, runs = DETERMINISM_STEPS, {}
+    for run in ("a", "b"):
+        cfg = d3pm_cfg(tmpdir, "mnist_d3pm", data_path, f"_{run}")
+        if run == "a":
+            cfg.sampler.sample_freq, cfg.sampler.num_steps = steps, D3PM_GRID_STEPS
+        torch.cuda.reset_peak_memory_stats(dev)
+        (state, info), launches = counted(lambda: train(cfg, n_iters=steps, seed=0, device=dev,
+                                                        log_every=steps))
+        runs[run] = (state, info, launches, torch.cuda.max_memory_allocated(dev) / 1e9)
+    (a, info, grid, peak), (b, _, quiet, _) = runs["a"], runs["b"]
+    differ = sorted(k for k in a.params if not torch.equal(a.params[k], b.params[k]))
+    samples = np.load(f"{info['paths']['pngs']}/samples_{steps}.npy")
+    rate_param = get_sampler(d3pm_cfg(tmpdir, "mnist_d3pm", data_path)).rate_param
+    log(f"  mnist_d3pm: two train() runs of {steps} steps at B={cfg.data.batch_size}: "
+        f"{info['steps_per_sec']:.2f} steps/s, peak {peak:.2f} GB; leaves that differ bit for "
+        f"bit: {len(differ)} of {len(a.params)}; the in-loop grid (TauL/{D3PM_GRID_STEPS}, "
+        f"the {rate_param} rate path) launched {grid} (expected none), samples "
+        f"{samples.shape} in [{samples.min()}, {samples.max()}]; the run without it {quiet}")
+    if differ:
+        raise AssertionError(f"mnist_d3pm: two train() runs differ: {differ[:6]}")
+    if rate_param != "ratio" or any(grid.values()) or any(quiet.values()) or \
+            samples.shape != (16, 784) or samples.min() < 0 or samples.max() > 255:
+        raise AssertionError(f"mnist_d3pm grid: {rate_param}, {grid}, {samples.shape}")
+    out = {"mnist_d3pm": dict(train_steps_per_s=info["steps_per_sec"], peak_memory_gb=peak,
+                              grid_launches=grid, checkpoints=info["paths"]["checkpoints"])}
+    for preset, n in (("synthetic_d3pm", D3PM_SYNTH_STEPS), ("protein_maze_d3pm",
+                                                            D3PM_MAZE_STEPS)):
+        cfg = d3pm_cfg(tmpdir, preset, data_path)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _, info = train(cfg, n_iters=n, seed=0, device=dev, log_every=n)
+        losses = np.asarray(info["step_losses"])
+        k = min(20, n // 2)
+        first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+        log(f"  {preset}: {n} steps at B={cfg.data.batch_size}, "
+            f"{info['steps_per_sec']:.2f} steps/s; loss {first:.4f} (first {k}) -> {last:.4f} "
+            f"(last {k}); pool swaps {len(info['pool_swaps'])}; printed: "
+            + " | ".join(printed.getvalue().strip().splitlines()))
+        if GRID_OFF not in printed.getvalue():
+            raise AssertionError(f"{preset}: no 'grids disabled' line")
+        if preset == "synthetic_d3pm":
+            check_losses(preset, losses, first, last)
+        elif not np.isfinite(losses).all():
+            raise AssertionError(f"{preset}: losses {losses.tolist()}")
+        out[preset] = dict(train_steps_per_s=info["steps_per_sec"], first_loss=first,
+                           last_loss=last, checkpoints=info["paths"]["checkpoints"])
+    return out
+
+
+def mmd_levels(cfg, dev, rounds: int, samples: int) -> tuple:
+    """The MMD of uniform random bits and of data against data, in the
+    eval's protocol (`rounds` x `samples`)."""
+    from ctdd_tpu_torch.data.loaders import get_dataset
+    from ctdd_tpu_torch.metrics.mmd import eval_mmd
+
+    D = cfg.model.concat_dim
+    dataset = get_dataset(cfg)
+    uniform = eval_mmd(cfg, lambda g, n: torch.randint(0, 2, (n, D), generator=g, device=dev),
+                       dataset, rounds, samples, device=dev)
+    data = eval_mmd(cfg, lambda g, n: dataset.data[
+        torch.randint(0, len(dataset), (n,), generator=g, device=dev).cpu().numpy()],
+        dataset, rounds, samples, device=dev)
+    return uniform, data
+
+
+def d3pm_evals(dev, tmpdir: str, data_path: str, trained: dict):
+    """(c) The eval CLI, the three started at once in threads: synthetic_d3pm's
+    MMD (SYNTH_ROUNDS x 4096, T=500), protein_maze_d3pm's maze_acc
+    (D3PM_MAZE_SAMPLES, T=1000) and one mnist_d3pm batch of 16 (save_samples,
+    T=1000); returns a function that waits for them and holds them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(3)
+    mmd = pool.submit(run_cli, "eval", "--preset", "synthetic_d3pm", "--ckpt",
+                      trained["synthetic_d3pm"]["checkpoints"], "--metric", "mmd",
+                      "--rounds", str(SYNTH_ROUNDS), "--batch", "0")
+    maze = pool.submit(run_cli, "eval", "--preset", "protein_maze_d3pm", "--ckpt",
+                       trained["protein_maze_d3pm"]["checkpoints"], "--metric", "maze_acc",
+                       "--samples", str(D3PM_MAZE_SAMPLES), "--batch", "0")
+    path = f"{tmpdir}/d3pm_mnist_samples.npy"
+    mnist = pool.submit(run_cli, "eval", "--preset", "mnist_d3pm", "--ckpt",
+                        trained["mnist_d3pm"]["checkpoints"], "--metric", "save_samples",
+                        "--samples", "16", "--out", path, "--set",
+                        f"data.location={data_path}")
+
+    def finish() -> dict:
+        from ctdd_tpu_torch.config.presets import get_preset
+
+        res = {"mmd synthetic_d3pm": last_json(mmd.result()),
+               "maze_acc protein_maze_d3pm": last_json(maze.result()),
+               "save_samples mnist_d3pm": last_json(mnist.result())}
+        pool.shutdown()
+        mmd_res, maze_res = res["mmd synthetic_d3pm"], res["maze_acc protein_maze_d3pm"]
+        samples = np.load(path)
+        uniform, data = mmd_levels(get_preset("synthetic_d3pm"), dev, SYNTH_ROUNDS, 4096)
+        mmd_res.update(uniform_bits_mmd=uniform, data_vs_data_mmd=data)
+        log(f"  eval save_samples mnist_d3pm (16, ancestral/1000): {samples.shape} in "
+            f"[{samples.min()}, {samples.max()}]; eval mmd synthetic_d3pm ({SYNTH_ROUNDS} x "
+            f"4096, ancestral/500): {mmd_res['value']:.6f}, uniform random bits "
+            f"{uniform:.6f}, data vs data {data:.3e}; eval maze_acc protein_maze_d3pm "
+            f"({D3PM_MAZE_SAMPLES}, ancestral/1000): {maze_res['value']:.4f} (not a quality "
+            "figure); launches "
+            + ", ".join(f"{k}: {r['kernel_launches']}" for k, r in res.items()))
+        if samples.shape != (16, 784) or samples.min() < 0 or samples.max() > 255:
+            raise AssertionError(f"mnist_d3pm eval: {res['save_samples mnist_d3pm']}")
+        if not (data < mmd_res["value"] < uniform):
+            raise AssertionError(f"synthetic_d3pm MMD not between data and uniform: {res}")
+        if any(any(r["kernel_launches"].values()) for r in res.values()) or \
+                not 0.0 <= maze_res["value"] <= 1.0:
+            raise AssertionError(f"d3pm evals: {res}")
+        return res
+
+    return finish
+
+
+def augment_checks(dev, tmpdir: str, data_path: str, cifar: str) -> dict:
+    """(d) Rotation at (64, 1, 28, 28) and flip at (64, 3, 32, 32), card
+    against CPU with the same angles and flips: the flip exact, the rotation
+    exact but for tie pixels (a float64 source coordinate within
+    AUGM_TIE_BAND of a half-integer), counted; then tauUnet_cifar10 (flip)
+    and dit_mnist (rotation) through train() with data.use_augm, each step
+    through the transform (counted by wrapping the loop's make_augment_fn)."""
+    import ctdd_tpu_torch.training.loop as loop
+    from ctdd_tpu_torch.data.augment import make_flip_fn, make_rotation_fn
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.from_numpy(np.load(data_path)["x_train"][:64].reshape(64, -1).astype(np.int32))
+    angles = torch.rand(64, generator=g) * 20.0 - 10.0
+    rot = make_rotation_fn((1, 28, 28))
+    want, got = rot(None, x, angles), rot(None, x.to(dev), angles.to(dev)).cpu()
+    ang = angles.double().numpy() * (np.pi / 180.0)
+    yy, xx = np.meshgrid(np.arange(28) - 13.5, np.arange(28) - 13.5, indexing="ij")
+    c, s = np.cos(ang)[:, None, None], np.sin(ang)[:, None, None]
+    tie = np.zeros((64, 28, 28), bool)
+    for v in (c * yy - s * xx + 13.5, s * yy + c * xx + 13.5):
+        tie |= np.abs(np.abs(v - np.floor(v)) - 0.5) < AUGM_TIE_BAND
+    differ = (got != want).numpy().reshape(64, 28, 28)
+    moved = float((want != x).float().mean())
+    xc = torch.from_numpy(np.load(cifar)["x_train"][:64].reshape(64, -1).astype(np.int32))
+    flips = torch.rand(64, generator=g) < 0.5
+    flip = make_flip_fn((3, 32, 32))
+    flip_same = torch.equal(flip(None, xc.to(dev), flips.to(dev)).cpu(), flip(None, xc, flips))
+    log(f"  rotation (64, 1, 28, 28), card vs CPU: {int(differ.sum())} of {differ.size} pixels "
+        f"differ, all at ties: {not (differ & ~tie).any()} ({int(tie.sum())} tie pixels; "
+        f"{moved:.3f} of the pixels moved); flip (64, 3, 32, 32): equal {flip_same} "
+        f"({int(flips.sum())} flipped)")
+    if (differ & ~tie).any() or not flip_same or not moved > 0.01:
+        raise AssertionError("augmentation: card vs CPU")
+    out = dict(rotation_pixels_differ=int(differ.sum()), rotation_tie_pixels=int(tie.sum()),
+               flip_equal=flip_same)
+    calls = []
+    made = loop.make_augment_fn
+
+    def counting(cfg):
+        fn = made(cfg)
+
+        def aug(generator, batch, draws=None):
+            calls.append(fn.__qualname__.split(".")[0])
+            return fn(generator, batch, draws)
+
+        return aug if fn is not None else None
+
+    data = {"tauUnet_cifar10": cifar, "dit_mnist": data_path}
+    loop.make_augment_fn = counting
+    try:
+        for preset, kind in (("tauUnet_cifar10", "make_flip_fn"),
+                             ("dit_mnist", "make_rotation_fn")):
+            cfg = image_cfg(tmpdir, preset, data, "_augm")
+            cfg.data.use_augm = True
+            calls.clear()
+            _, info = loop.train(cfg, n_iters=AUGM_STEPS, seed=0, device=dev,
+                                 log_every=AUGM_STEPS)
+            log(f"  {preset} with data.use_augm: {AUGM_STEPS} train() steps at "
+                f"B={cfg.data.batch_size}, {info['steps_per_sec']:.2f} steps/s, last loss "
+                f"{info['step_losses'][-1]:.4f}; transform calls {len(calls)} ({set(calls)})")
+            if calls != [kind] * AUGM_STEPS or not np.isfinite(info["step_losses"]).all():
+                raise AssertionError(f"{preset} augmented: {calls}, {info['step_losses']}")
+            out[preset] = dict(train_steps_per_s=info["steps_per_sec"],
+                               transform_calls=len(calls))
+    finally:
+        loop.make_augment_fn = made
+    return out
+
+
+def d3pm_step_breakdown(dev, cfg, steps: int = D3PM_PROFILE_STEPS) -> dict:
+    """(e) Where one mnist_d3pm ancestral step's time goes at batch 16, t=T/2:
+    wall time, device time of the whole step (torch.profiler), of the UNet's
+    forward and of the posterior product (16, 784, 256) x (16, 256, 256) in
+    float32 alone (from a trace, or from a loop between CUDA events where the
+    trace reads below the product's bound: its operations at the float32
+    peak, or its bytes), the rest, launches and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctdd_tpu_torch.d3pm.diffusion import make_diffusion
+    from ctdd_tpu_torch.models.base import create_model
+
+    torch.manual_seed(4)
+    model = create_model(cfg, device=dev)
+    model.net.eval()
+    diffusion = make_diffusion(cfg.model, device=dev)
+    B, D, S = 16, cfg.model.concat_dim, cfg.data.S
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, S, (B, D), device=dev, generator=gen)
+    t = torch.full((B,), cfg.model.num_timesteps // 2, device=dev, dtype=torch.long)
+
+    def fn(xs, ts):
+        return model.apply(model.net, xs, ts)
+
+    flops = 2.0 * B * D * S * S
+    nbytes = 4.0 * (B * D * S + B * S * S + B * D * S)
+    post_bound_ms = max(flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    with torch.inference_mode():
+        probs = torch.softmax(fn(x, t), dim=-1)
+        unet_ms = device_ms(lambda: fn(x, t), 10)
+
+        def product():
+            return diffusion._at_onehot(diffusion.q_mats, t - 1, probs)
+
+        # a trace that reads below the bound lost the launches: the loop's time
+        post = dict(device_ms=device_ms(product, 20), loop_ms=cuda_ms(product, 20))
+        post_ms = post["device_ms"] if post["device_ms"] >= post_bound_ms else post["loop_ms"]
+
+        def run():
+            xs = x
+            for _ in range(steps):
+                xs, _ = diffusion.p_sample(fn, xs, t, gen)
+            return xs
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            run()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    out = dict(batch=B, step_ms=step_ms, unet_ms=unet_ms, posterior_product_ms=post_ms,
+               posterior_product_trace_ms=post["device_ms"],
+               posterior_product_loop_ms=post["loop_ms"],
+               posterior_product_gflop=flops / 1e9, posterior_product_bound_ms=post_bound_ms,
+               device_busy_ms=busy_ms,
+               rest_ms=busy_ms - unet_ms - post_ms if busy_ms else None,
+               idle_share=1.0 - busy_ms / step_ms if busy_ms else None,
+               device_kernels_per_step=sum(e.count for e in kernels) / steps,
+               table_mb=2 * diffusion.q_mats.numel() * 4 / 1e6)
+    log(f"  mnist_d3pm ancestral step at batch 16: {step_ms:.3f} ms wall; device busy "
+        f"{busy_ms:.3f} ms: UNet forward {unet_ms:.3f} ms, posterior product {post_ms:.4f} ms "
+        f"(trace {post['device_ms']:.4f}, loop {post['loop_ms']:.4f}; {flops / 1e9:.2f} GFLOP, "
+        f"bound {post_bound_ms:.4f} ms), the rest "
+        + (f"{out['rest_ms']:.3f} ms" if busy_ms else "not measured")
+        + f"; {out['device_kernels_per_step']:.0f} device kernels per step; idle share "
+        + (f"{out['idle_share']:.3f}" if busy_ms else "not measured")
+        + f"; the two float32 tables {out['table_mb']:.0f} MB on the card")
+    return out
+
+
+def phase_d3pm(dev, tmpdir: str, data_path: str) -> dict:
+    """Phase [18]: (b) the three D3PM presets through train(); then, beside
+    (c)'s three eval CLIs (their times are not figures), (a) card vs CPU and
+    (d) augmentation; alone, (e) the mnist_d3pm ancestral step's breakdown."""
+    t0 = time.perf_counter()
+    cifar = f"{tmpdir}/cifar_like.npz"
+    if not os.path.exists(cifar):
+        cifar_like(cifar)
+    log(f"  (b) train(): mnist_d3pm twice ({DETERMINISM_STEPS} steps, one with the TauL grid), "
+        f"synthetic_d3pm {D3PM_SYNTH_STEPS} steps, protein_maze_d3pm {D3PM_MAZE_STEPS} steps")
+    out = {"training": d3pm_training(dev, tmpdir, data_path)}
+    log("  (c) eval CLI: synthetic_d3pm mmd, protein_maze_d3pm maze_acc and one mnist_d3pm "
+        "batch of 16, beside (a) and (d) (their times are not figures; (e) times the step)")
+    finish = d3pm_evals(dev, tmpdir, data_path, out["training"])
+    log("  (a) full width, B=2, card vs CPU")
+    out["vs_cpu"] = d3pm_vs_cpu(dev)
+    log("  (d) augmentation")
+    out["augment"] = augment_checks(dev, tmpdir, data_path, cifar)
+    out["evals"] = finish()
+    log("  (e) one mnist_d3pm ancestral step at batch 16 under torch.profiler, alone")
+    out["step"] = d3pm_step_breakdown(dev, d3pm_cfg(tmpdir, "mnist_d3pm", data_path))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase [18]: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3285,6 +3720,9 @@ def main() -> int:
         stage("[17] the DiT, U-ViT and CIFAR10 image presets and the label-conditional "
               "path")
         slice9 = phase_slice9(dev, tmpdir, data_path)
+        stage("[18] the D3PM baseline (mnist_d3pm, synthetic_d3pm, protein_maze_d3pm) and "
+              "on-device augmentation")
+        d3pm = phase_d3pm(dev, tmpdir, data_path)
 
     by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
@@ -3320,7 +3758,11 @@ def main() -> int:
                       slice9["dit_mnist"]["guided_batch"]["launches"],
                   f"dit_mnist guided /generate n=16 {CFG_STEPS} steps":
                       slice9["dit_mnist"]["generate_launches"],
-                  "bin_mnist_hollow LBJF n=16": slice9["bin_mnist_hollow"]["lbjf"]["launches"]}
+                  "bin_mnist_hollow LBJF n=16": slice9["bin_mnist_hollow"]["lbjf"]["launches"],
+                  f"mnist_d3pm train() in-loop grid TauL/{D3PM_GRID_STEPS} n=16":
+                      d3pm["training"]["mnist_d3pm"]["grid_launches"],
+                  **{f"eval {name}": r["kernel_launches"]
+                     for name, r in d3pm["evals"].items()}}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -3406,6 +3848,7 @@ def main() -> int:
     log("maze_sudoku_protein: " + json.dumps({**maze_sudoku, "card": card_line()}))
     log("slice8: " + json.dumps({**slice8, "card": card_line()}))
     log("slice9: " + json.dumps({**slice9, "card": card_line()}))
+    log("d3pm: " + json.dumps({**d3pm, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

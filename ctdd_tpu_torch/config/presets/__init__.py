@@ -39,6 +39,9 @@ _PRESETS = {
     "uvit_mnist": "ctdd_tpu_torch.config.presets.mnist_uvit",
     "uvit_cifar10": "ctdd_tpu_torch.config.presets.cifar10_uvit",
     "bin_mnist_hollow": "ctdd_tpu_torch.config.presets.bin_mnist_hollow",
+    "mnist_d3pm": "ctdd_tpu_torch.config.presets.mnist_d3pm",
+    "synthetic_d3pm": "ctdd_tpu_torch.config.presets.synthetic_d3pm",
+    "protein_maze_d3pm": "ctdd_tpu_torch.config.presets.maze_protein_d3pm",
 }
 
 

@@ -22,8 +22,9 @@ shuffled-suffix anchor; on LakhPianoroll also `scale_consistency` and the
 rest fractions), save_samples. `--label` (class ids cycled over each
 batch) and `--cfg-scale` condition a label-conditional model (DiT); the
 port refuses `--label` on another model and `--cfg-scale` without
-`--label` (ValueError), which JAX's CLI ignores. D3PM checkpoints need a
-module of a later slice and raise NotImplementedError.
+`--label` (ValueError), which JAX's CLI ignores. A D3PM checkpoint
+(`loss.name=d3pm`) samples ancestrally (`CategoricalDiffusion.p_sample_loop`,
+T network calls a batch) for every metric but cond_mmd.
 The last line of the output is one JSON object: the metric, its value, and
 the launches of each hand-written kernel.
 """
@@ -53,13 +54,6 @@ def _checkpoint_path(ckpt: str, step) -> str:
     if step is not None and step not in steps:
         raise FileNotFoundError(f"checkpoint step {step} not found; available: {steps}")
     return mgr.path(steps[-1] if step is None else step)
-
-
-def _refuse_unported(cfg):
-    if cfg.loss.name == "d3pm":
-        raise NotImplementedError(
-            "D3PM checkpoints need the D3PM port (ROADMAP queue A, D3PM), "
-            "ported in a later slice")
 
 
 def _batches(generator, n: int, batch: int, device):
@@ -281,7 +275,10 @@ def main(argv=None):
     from ctdd_tpu_torch.utils.device import resolve_device
 
     cfg = apply_overrides(get_preset(args.preset), parse_overrides(args.set))
-    _refuse_unported(cfg)
+    d3pm = cfg.loss.name == "d3pm"
+    if d3pm and args.metric == "cond_mmd":
+        raise ValueError("cond_mmd needs a prefix-conditional sampler; a D3PM model "
+                         "samples ancestrally")
     device = resolve_device(args.device)
     model = create_model(cfg, device=device)
     if args.label is None and args.cfg_scale:
@@ -295,8 +292,6 @@ def main(argv=None):
     params = "ema" if args.use_ema else "raw"
     print(f"restored step={int(ckpt['step'])} params={params} ({path})")
 
-    sampler = get_sampler(cfg)
-
     def conditioning(n):
         return {}
 
@@ -306,8 +301,24 @@ def main(argv=None):
         def conditioning(n):
             return dict(label=np.resize(classes, n), cfg_scale=args.cfg_scale)
 
-    def sample_fn(generator, n):
-        return sampler.sample(model, model.net, generator, N=n, **conditioning(n))[0]
+    if d3pm:
+        # no CTMC process: ancestral sampling over the D3PM chain
+        from ctdd_tpu_torch.d3pm.diffusion import make_diffusion
+
+        diffusion = make_diffusion(cfg.model, device=device)
+        sampler = None
+        sampler_name = "D3PM ancestral"
+
+        def sample_fn(generator, n):
+            x = diffusion.p_sample_loop(lambda x, t: model.apply(model.net, x, t),
+                                        (n, cfg.model.concat_dim), generator)
+            return x.cpu().numpy()
+    else:
+        sampler = get_sampler(cfg)
+        sampler_name = cfg.sampler.name
+
+        def sample_fn(generator, n):
+            return sampler.sample(model, model.net, generator, N=n, **conditioning(n))[0]
 
     if args.batch:
         sample_fn = _batched(sample_fn, args.batch, device)
@@ -346,7 +357,7 @@ def main(argv=None):
         print(f"saved {s.shape} -> {args.out}")
         result.update(value=None, path=args.out, shape=list(s.shape))
     result.update(
-        step=int(ckpt["step"]), params=params, sampler=cfg.sampler.name,
+        step=int(ckpt["step"]), params=params, sampler=sampler_name,
         device=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         kernel_launches=kernel_launches())
     print(json.dumps(result), flush=True)

@@ -1,4 +1,5 @@
-"""Model composition: a network bound to its CTMC forward process.
+"""Model composition: a network bound to its CTMC forward process (none for
+the D3PM models, which sample in discrete time).
 
 Counterpart of ctdd_tpu/models/base.py. Weights live in the network module;
 `apply(params_or_module, x, t)` runs either that module or, given a state
@@ -28,10 +29,11 @@ from ctdd_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass
 class DiffusionModel:
-    """A score network bound to its CTMC forward process."""
+    """A score network bound to its CTMC forward process, or to none
+    (`process=None`: the D3PM models)."""
 
     net: nn.Module
-    process: ForwardProcess
+    process: Optional[ForwardProcess]
     cfg: Any
     has_label: bool = False
     bound_label: Optional[torch.Tensor] = None
@@ -40,7 +42,11 @@ class DiffusionModel:
 
     @property
     def device(self) -> torch.device:
-        return self.process.device
+        """The process's device; without one (the D3PM models), where the
+        network's weights are."""
+        if self.process is not None:
+            return self.process.device
+        return next(self.net.parameters()).device
 
     def apply(
         self, params: Union[nn.Module, Mapping[str, torch.Tensor]],

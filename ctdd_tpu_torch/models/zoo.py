@@ -5,7 +5,8 @@ wrapper (`_unet_paul`), the residual MLP (`_residual_mlp`), the hollow
 family (`_hollow`, `_hollow_logistics`, `_masked`, `_bert_enum`), the DDSM
 score networks (`_sudoku`, `_protein`), the sequence transformer
 (`_sequence_transformer`), the binary transformer EBM (`_binary_ebm`), DiT
-(`_dit`), U-ViT (`_uvit`) and the tauLDR U-Net (`_tau_unet`). Registered
+(`_dit`), U-ViT (`_uvit`) and the tauLDR U-Net (`_tau_unet`); the D3PM
+models `UniBertD3PM` and `UniProteinD3PM` have no process. Registered
 names match the JAX zoo so its configs resolve unchanged.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.models.base import DiffusionModel, compose
+from ctdd_tpu_torch.utils.device import resolve_device
 
 
 def _unet_paul(cfg):
@@ -126,10 +128,12 @@ _ZOO = {
     "UniformHollowEMA":                       (_hollow, "UniformRate"),
     "GaussianHollowEMA":                      (_hollow, "GaussianTargetRate"),
     "UniVarBertEMA":                          (_bert_enum, "UniformVariantRate"),
+    "UniBertD3PM":                            (_bert_enum, None),
     "UniformBertEMA":                         (_bert_enum, "UniformRate"),
     "UniformBDTEMA":                          (_hollow, "UniformRate"),
     "UniVarScoreNetEMA":                      (_sudoku, "UniformVariantRate"),
     "UniVarProteinScoreNetEMA":               (_protein, "UniformVariantRate"),
+    "UniProteinD3PM":                         (_protein, None),
     "UniformRateSequenceTransformerEMA":      (_sequence_transformer, "UniformRate"),
     "BirthDeathRateSequenceTransformerEMA":   (_sequence_transformer, "BirthDeathForwardBase"),
     "UniVarBinaryEBMEMA":                     (_binary_ebm, "UniformVariantRate"),
@@ -143,6 +147,9 @@ _LABEL_MODELS = frozenset({"GaussianDiTEMA"})
 
 def _make_entry(name, make_net, process_name):
     def build(cfg, device=None) -> DiffusionModel:
+        if process_name is None:  # the D3PM models carry no CTMC process
+            return DiffusionModel(net=make_net(cfg).to(resolve_device(device)),
+                                  process=None, cfg=cfg)
         # the process name is bound into the config, as the JAX zoo does
         if "rate_name" not in cfg.model:
             cfg.model.rate_name = process_name

@@ -69,7 +69,13 @@ def _conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
 
 
 class TimeEmbedding(nn.Module):
-    """Sinusoidal t embedding, [sin, cos] concat, frequencies over half - 1."""
+    """Sinusoidal t embedding, [sin, cos] concat, frequencies over half - 1.
+
+    The D3PM baseline passes the integer step (up to 999) where the CTMC
+    models pass t in [0, 1], so one ulp of a frequency moves an argument by
+    up to ~6e-5 rad: the float32 frequencies are the correctly rounded exp of
+    the float32 exponents (exp taken in float64), the same table on every
+    device, as in ops/timestep.py."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -77,10 +83,10 @@ class TimeEmbedding(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         half = self.dim // 2
-        inv_freq = torch.exp(
+        inv_freq = torch.exp((
             torch.arange(half, dtype=torch.float32, device=t.device)
             * (-math.log(10000.0) / (half - 1))
-        )
+        ).double()).float()
         args = t.float()[:, None] * inv_freq[None, :]
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 

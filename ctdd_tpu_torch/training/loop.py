@@ -15,9 +15,12 @@ deterministic for the whole run.
 A label-conditional model (DiT) over a labelled dataset trains with the
 batch's labels (only NLLOriginal conditions on them) and draws its grid
 one class per row. Sample grids are saved as `samples_<step>.npy` (the PNG
-grid and the loss-curve PNG wait for the loggers port). Not ported yet, and
-refused with NotImplementedError: D3PM and on-device augmentation
-(`data.use_augm`).
+grid and the loss-curve PNG wait for the loggers port). With `loss.name=d3pm`
+the loss is the D3PM baseline's (`d3pm/diffusion.py`); a D3PM model without
+a CTMC process draws no in-loop grid (it samples through the eval CLI), while
+`mnist_d3pm`'s UNet, which has one, draws its TauL grid as JAX's loop does.
+With `data.use_augm` the batch is rotated or flipped on the device inside the
+step (`data/augment.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import numpy as np
 import torch
 
 from ctdd_tpu_torch.config.base import save_config
+from ctdd_tpu_torch.d3pm.diffusion import D3PMLoss, make_diffusion
+from ctdd_tpu_torch.data.augment import make_augment_fn
 from ctdd_tpu_torch.data.loaders import get_dataset, iterate_batches
 from ctdd_tpu_torch.losses.losses import get_loss
 from ctdd_tpu_torch.models.base import create_model
@@ -43,16 +48,11 @@ from ctdd_tpu_torch.utils import bookkeeping
 from ctdd_tpu_torch.utils.device import deterministic_training, resolve_device
 
 
-def _refuse_unported(cfg, model):
-    unported = {
-        "loss.name=d3pm (D3PM)": cfg.loss.name == "d3pm",
-        "data.use_augm (on-device augmentation)": bool(cfg.data.get("use_augm", False)),
-        f"{type(model.net).__name__} (no init_weights)": not hasattr(model.net, "init_weights"),
-    }
-    named = [k for k, v in unported.items() if v]
-    if named:
+def _refuse_unported(model):
+    if not hasattr(model.net, "init_weights"):
         raise NotImplementedError(
-            f"training with {', '.join(named)} is ported in a later slice")
+            f"training with {type(model.net).__name__} (no init_weights) is ported in a "
+            "later slice")
 
 
 def _sync(device: torch.device):
@@ -192,7 +192,7 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
     # package initializes them
     with torch.random.fork_rng(devices=[]):
         model = create_model(cfg, device=device)
-    _refuse_unported(cfg, model)
+    _refuse_unported(model)
     model.net.init_weights(torch.Generator().manual_seed(seed))
 
     paths = bookkeeping.create_experiment_folder(cfg.save_location, cfg.experiment_name)
@@ -200,7 +200,10 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
     writer = bookkeeping.setup_writer(writer_kind, paths["root"])
     ckpt = bookkeeping.CheckpointManager(paths["checkpoints"], cfg)
 
-    loss = get_loss(cfg)
+    if cfg.loss.name == "d3pm":
+        loss = D3PMLoss(cfg, make_diffusion(cfg.model, device=device))
+    else:
+        loss = get_loss(cfg)
     tx = get_optimizer(cfg)
     dataset = get_dataset(cfg)
     state = create_train_state(dict(model.net.named_parameters()), tx)
@@ -211,6 +214,8 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
     device_data = (bool(cfg.training.get("device_data", True))
                    and dataset.data.nbytes <= device_data_cap)
     ema_decay = float(cfg.model.get("ema_decay", 0.0))
+    # a fresh rotation or flip per item per step, on the device
+    augment_fn = make_augment_fn(cfg)
     # stream_fresh: a fresh pool every `stream_refresh_period` epochs, so a
     # long run sees the reference's fresh-data distribution (its maze and
     # sudoku datasets generate a board per item) instead of cycling one pool
@@ -230,18 +235,27 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
         if has_label:
             data = (data, torch.from_numpy(np.asarray(dataset.labels, np.int64)).to(device))
         step_fn = make_device_data_step(model, loss, tx, cfg.data.batch_size,
-                                        ema_decay=ema_decay, has_label=has_label)
+                                        ema_decay=ema_decay, has_label=has_label,
+                                        augment_fn=augment_fn)
     else:
         batches = iterate_batches(dataset, cfg.data.batch_size,
                                   shuffle=cfg.data.get("shuffle", True), seed=seed)
         # JAX spends the stream's first batch on model.init and trains from
         # the second: skip it, so both packages train on the same batches
         next(batches)
-        step_fn = make_train_step(model, loss, tx, ema_decay=ema_decay)
+        step_fn = make_train_step(model, loss, tx, ema_decay=ema_decay,
+                                  augment_fn=augment_fn)
 
     checkpoint_freq = cfg.saving.get("checkpoint_freq", 10000)
     sample_freq = cfg.sampler.get("sample_freq", 0)
-    sampler = get_sampler(cfg) if sample_freq and sample_freq <= n_iters else None
+    # the CTMC samplers need a process: a D3PM model without one samples
+    # ancestrally through the eval CLI
+    has_process = model.process is not None
+    sampler = (get_sampler(cfg) if sample_freq and sample_freq <= n_iters and has_process
+               else None)
+    if sample_freq and not has_process:
+        print("in-loop sample grids disabled: model has no CTMC process "
+              "(d3pm family) — use eval.py for sampling", flush=True)
 
     preempt = bookkeeping.PreemptionHandler(paths["root"])
     preempt.set_save_fn(lambda: ckpt.save(state.step, state))

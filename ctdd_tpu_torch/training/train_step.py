@@ -22,10 +22,14 @@ from ctdd_tpu_torch.training.state import TrainState
 NAN_SENTINEL = 1e9  # reference training.py:24
 
 
-def make_loss_fn(model, loss):
-    """(params, batch, generator, label, n_iter) -> scalar loss, dropout on."""
+def make_loss_fn(model, loss, augment_fn=None):
+    """(params, batch, generator, label, n_iter) -> scalar loss, dropout on.
+    `augment_fn(generator, batch)` (data/augment.py) transforms the batch on
+    its device, from the step's generator, before the loss draws."""
 
     def loss_fn(params, batch, generator, label, n_iter):
+        if augment_fn is not None:
+            batch = augment_fn(generator, batch)
         return loss.calc_loss(model, params, generator, batch, label=label,
                               n_iter=n_iter, train=True)
 
@@ -74,10 +78,10 @@ def apply_update(state: TrainState, loss, grads, tx, ema_decay: float):
                                ema_num_updates=n_updates), value
 
 
-def make_train_step(model, loss, tx, ema_decay: float = 0.0) -> Callable:
+def make_train_step(model, loss, tx, ema_decay: float = 0.0, augment_fn=None) -> Callable:
     """`step(state, batch, seed, label=None) -> (state, loss)` over a batch
     the caller supplies."""
-    loss_fn = make_loss_fn(model, loss)
+    loss_fn = make_loss_fn(model, loss, augment_fn)
 
     def step(state: TrainState, batch, seed: int, label=None):
         gen = step_generator(seed, state.step, batch.device)
@@ -88,13 +92,13 @@ def make_train_step(model, loss, tx, ema_decay: float = 0.0) -> Callable:
     return step
 
 
-def make_device_data_step(model, loss, tx, batch_size: int,
-                          ema_decay: float = 0.0, has_label: bool = False) -> Callable:
+def make_device_data_step(model, loss, tx, batch_size: int, ema_decay: float = 0.0,
+                          has_label: bool = False, augment_fn=None) -> Callable:
     """`step(state, data, seed) -> (state, loss)` over a dataset on the
     device, (N, D) int: the batch indices are drawn on the device, uniform
     with replacement, from the step's generator. With `has_label`, `data`
     is an (x, labels) pair gathered with the same indices."""
-    loss_fn = make_loss_fn(model, loss)
+    loss_fn = make_loss_fn(model, loss, augment_fn)
 
     def step(state: TrainState, data, seed: int):
         x = data[0] if has_label else data

@@ -1,5 +1,5 @@
 """The port's eval and bench CLIs on the CPU at tiny widths, the options
-that wait for later slices, and the maze and sudoku accuracies against the
+it refuses, the D3PM ancestral path, and the maze and sudoku accuracies against the
 JAX package's on seeded boards."""
 
 import json
@@ -26,6 +26,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the residual MLP at a tiny width
 MLP = ["model.d_model=16", "model.hidden_dim=16", "model.temb_dim=8", "model.num_layers=1",
        "sampler.num_steps=4"]
+# synthetic_d3pm's Bert enum transformer at a tiny width, T=6
+D3PM_TINY = ["data.shape=[8]", "model.concat_dim=8", "model.embed_dim=16", "model.qkv_dim=16",
+             "model.mlp_dim=32", "model.num_layers=1", "model.num_heads=2",
+             "model.num_output_ffresiduals=1", "model.num_timesteps=6"]
 
 
 def _checkpoint(directory, preset, overrides, step=7):
@@ -127,10 +131,23 @@ def test_eval_accuracies_and_save_samples(tmp_path, capsys, metric, D, S):
     (["--cfg-scale", "2.0"], "label-conditional"),
     (["--set", "loss.name=d3pm"], "D3PM"),
 ])
-def test_unported_options_raise(tmp_path, extra, what):
-    """D3PM waits for its slice; `--label` on a model that is not
-    label-conditional, and `--cfg-scale` without `--label`, are refused."""
-    with pytest.raises(NotImplementedError if what == "D3PM" else ValueError, match=what):
+def test_unported_options_raise(tmp_path, capsys, extra, what):
+    """`--label` on a model that is not label-conditional, and `--cfg-scale`
+    without `--label`, are refused. `loss.name=d3pm`, refused until the D3PM
+    slice, now samples ancestrally: `synthetic_d3pm` at a tiny width (T=6),
+    6 samples in batches of 4, states in range."""
+    if what == "D3PM":
+        over = D3PM_TINY + extra[1:]
+        ckpt = _checkpoint(tmp_path, "synthetic_d3pm", over, step=3)
+        out = str(tmp_path / "s.npy")
+        res = _run(["--preset", "synthetic_d3pm", "--ckpt", ckpt, "--metric", "save_samples",
+                    "--samples", "6", "--batch", "4", "--out", out, "--set", *over], capsys)
+        s = np.load(out)
+        assert res["sampler"] == "D3PM ancestral" and res["shape"] == [6, 8]
+        assert s.shape == (6, 8) and s.min() >= 0 and s.max() < 2
+        assert sum(res["kernel_launches"].values()) == 0
+        return
+    with pytest.raises(ValueError, match=what):
         eval_cli.main(["--preset", "mlp_synthetic", "--ckpt", str(tmp_path), "--device",
                        "cpu"] + extra)
 
