@@ -54,8 +54,8 @@ Phases (any fault exits non-zero; nothing is caught):
               steps, both rate kernels vs plain at N=4096, then its MMD at the
               reference protocol (25 x 4096, LBJF/100; 2500 launches of each)
               between data vs data and uniform bits; (c) FIDs of [12]'s
-              checkpoint (256 fused TauL/500 samples against 2048 real
-              images, 500 launches per eval) with trained, lenet and
+              checkpoint (256 fused TauL/250 samples against 2048 real
+              images, 250 launches per eval) with trained, lenet and
               Inception features; (d) the bench at
               50 sampler steps (its bf16 train step included)
  14. hollow   the SDDM hollow family at full width: (a) holvisual_mnist
@@ -110,7 +110,7 @@ Phases (any fault exits non-zero; nothing is caught):
               logits at cfg_scale 0, 1, 1.5, each with a TF32 control; (b)
               tauUnet_cifar10 through train() at B=64 (two 20-step runs
               bit-identical, steps/s, peak memory, the step's device split),
-              served over HTTP (TauL/1000: exactly 1000 reverse-rates
+              served over HTTP (TauL/500: exactly 500 reverse-rates
               launches at (16, 3072, 256)), and 3 fused steps against plain
               at D=3072; (c) dit_mnist: two 20-step runs bit-identical, its
               label table bit-equal to its start under NLL (params and EMA)
@@ -118,10 +118,11 @@ Phases (any fault exits non-zero; nothing is caught):
               arange % 10, cfg_scale 1.5, TauL/100: 100 reverse-rates
               launches, two forwards a step) and one /generate?label=...
               request; (d) uvit_mnist, uvit_cifar10 and dit_mnist's B=64
-              steps; (e) bin_mnist_hollow trained 30 steps, LBJF/1000 at
-              batch 16 (exactly 1000 posterior launches at (16, 784, 2));
+              steps; (e) bin_mnist_hollow trained 30 steps, LBJF/500 at
+              batch 16 (exactly 500 posterior launches at (16, 784, 2));
               (f) the kernels against plain and timed at these shapes; (g)
-              the eval CLI's lenet FID of (b)'s checkpoint (32 samples)
+              the eval CLI's lenet FID of (b)'s checkpoint (32 samples,
+              TauL/500)
  18. d3pm     the D3PM baseline at full width and on-device augmentation:
               (a) each preset's tables on the card bit-equal to the host's;
               at B=2, t = (T-1, 0), the posterior logits (both branches),
@@ -138,6 +139,24 @@ Phases (any fault exits non-zero; nothing is caught):
               flip card vs CPU, and tauUnet_cifar10 and dit_mnist trained 10
               steps with data.use_augm; (e) an mnist_d3pm ancestral step's
               breakdown at batch 16
+ 19. parallel data parallelism, the loggers and the loop's figures at the
+              flagship's full width: (a) on a one-rank NCCL group, the DP
+              steps (host batches and the dataset on the device) 5 steps at
+              B=64 bit-identical to the single-device steps, and a control
+              (one gradient leaf scaled before the reduction) that must
+              break that; (b) two processes sharing the card over gloo run
+              train()'s DP branch 10 steps at global B=64: parameters
+              bit-identical after every step, the last loss the mean of the
+              shard losses recomputed here (1e-6), rank 0's checkpoints
+              alone, steps/s; (c) the DP sampler at one rank, N=16, fused
+              TauL/100: exactly 100 launches, samples bit-identical to
+              sampler.sample; (d) denoisingImages (full width) and
+              ConditionalDenoisingNoteSeq (pianoroll_cond's L=256, S=129) on
+              the card with the numpy writer and no matplotlib, each PNG read
+              back equal to its panels; train() 20 steps with its in-loop
+              grid (TauL/100: 100 launches), samples_20.png beside the .npy,
+              the loss-curve line; (e) the dry run of 2 processes on the CPU,
+              and mnist_d3pm's host table build alone
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -850,8 +869,9 @@ MOVED_SHARE_ABS = 1e-4  # (a): ... plus this share of the entries
 RESUME_TOL = 2e-3  # (c): resumed vs uninterrupted, share of the distance trained
 # phase [13](d): the bench's sampler steps (its protocol's 1000; 100 until phase [17] came)
 BENCH_STEPS = 50
-# phase [13](c): the FID evals' TauL steps (the preset's 1000 until phase [17] came)
-FID_STEPS = 500
+# phase [13](c): the FID evals' TauL steps (the preset's 1000 until phase [17] came,
+# 500 until phase [19] came: cut for time)
+FID_STEPS = 250
 # phase [11]: LBJF with a corrector and tauUnet_mnist_ll (1000 until phase [17] came)
 SERVE_CUT_STEPS = 500
 
@@ -2844,6 +2864,9 @@ BIN_TRAIN_STEPS = 30  # (e) bin_mnist_hollow (the preset's 500k, cut)
 CFG_STEPS = 100  # (c) the guided batch and /generate: 100 of the preset's 1000 steps
 CFG_SCALE = 1.5
 FID_LENET_SAMPLES = 32  # (g) not a quality figure
+# (b), (e), (g): sampler steps of the served, sampled and scored batches (the
+# presets' 1000 until phase [19] came: cut for time)
+IMAGE_SAMPLER_STEPS = 500
 K_FUSED = 3  # (b) fused vs plain steps at D=3072
 TABLE_LEAF = "DiT_0.LabelEmbedder_0.Embed_0.weight"
 
@@ -3112,13 +3135,15 @@ def slice9_kernels(dev) -> dict:
 def phase_slice9(dev, tmpdir: str, data_path: str) -> dict:
     """Phase [17]. (b) tauUnet_cifar10 through train() (twin 20-step runs
     bit-identical; rate, peak memory, the step's device split), its
-    checkpoint served over /generate (TauL/1000: exactly 1000 reverse-rates
-    launches at (16, 3072, 256)) and K fused steps against plain at D=3072;
+    checkpoint served over /generate (TauL/IMAGE_SAMPLER_STEPS: exactly that
+    many reverse-rates launches at (16, 3072, 256)) and K fused steps
+    against plain at D=3072;
     then (g) the eval CLI's lenet FID of that checkpoint, beside (a) card
     vs CPU and (c) dit_mnist's label path, whose times are not figures;
     alone again, (d) uvit_mnist, uvit_cifar10 and dit_mnist's bare steps,
-    (e) bin_mnist_hollow trained and LBJF/1000 (exactly 1000 posterior
-    launches at (16, 784, 2)), and (f) the kernels at this slice's shapes."""
+    (e) bin_mnist_hollow trained and LBJF/IMAGE_SAMPLER_STEPS (exactly that
+    many posterior launches at (16, 784, 2)), and (f) the kernels at this
+    slice's shapes."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ctdd_tpu_torch.training.loop import train
@@ -3134,7 +3159,7 @@ def phase_slice9(dev, tmpdir: str, data_path: str) -> dict:
     cfg = image_cfg(tmpdir, "tauUnet_cifar10", data)
     out["tauUnet_cifar10"], ckpt_dir = image_training(dev, cfg, cifar)
     ckpt = f"{ckpt_dir}/{DETERMINISM_STEPS}.pt"
-    steps = cfg.sampler.num_steps
+    steps = cfg.sampler.num_steps = IMAGE_SAMPLER_STEPS
     launches, seconds = serve_checkpoint(
         dev, f"tauUnet_cifar10 trained {DETERMINISM_STEPS} steps", cfg, ckpt, 16,
         {"reverse_rates": steps}, warmup=False)
@@ -3146,12 +3171,13 @@ def phase_slice9(dev, tmpdir: str, data_path: str) -> dict:
         dev, fcfg, trained_model(fcfg, dev, ckpt_dir, DETERMINISM_STEPS))
 
     log(f"  (g) eval --metric fid --features lenet of that checkpoint ({FID_LENET_SAMPLES} "
-        "samples, TauL/1000), beside (a) and (c)")
+        f"samples, TauL/{steps}), beside (a) and (c)")
     with ThreadPoolExecutor(1) as pool:
         fid_run = pool.submit(
             run_cli, "eval", "--preset", "tauUnet_cifar10", "--ckpt", ckpt, "--metric", "fid",
             "--features", "lenet", "--samples", str(FID_LENET_SAMPLES), "--batch", "16",
-            "--n-real", "512", "--set", f"data.location={cifar}")
+            "--n-real", "512", "--set", f"data.location={cifar}",
+            f"sampler.num_steps={steps}")
         log("  (a) full-width logits at B=2, card vs CPU")
         out["vs_cpu"] = image_vs_cpu(dev)
         log("  (c) dit_mnist: the label table under NLL and NLLOriginal, a guided batch, "
@@ -3177,12 +3203,12 @@ def phase_slice9(dev, tmpdir: str, data_path: str) -> dict:
         out.setdefault(preset, {})["step"] = step
 
     log(f"  (e) bin_mnist_hollow (hollow, D=784, S=2, CatRM) at B=16, {BIN_TRAIN_STEPS} steps; "
-        "LBJF/1000 at batch 16")
+        f"LBJF/{IMAGE_SAMPLER_STEPS} at batch 16")
     bcfg = image_cfg(tmpdir, "bin_mnist_hollow", data)
     torch.cuda.reset_peak_memory_stats(dev)
     _, info = train(bcfg, n_iters=BIN_TRAIN_STEPS, seed=0, device=dev,
                     log_every=BIN_TRAIN_STEPS)
-    bsteps = bcfg.sampler.num_steps
+    bsteps = bcfg.sampler.num_steps = IMAGE_SAMPLER_STEPS
     model = trained_model(bcfg, dev, info["paths"]["checkpoints"], BIN_TRAIN_STEPS)
     lbjf = one_batch(f"bin_mnist_hollow trained {BIN_TRAIN_STEPS} steps", bcfg, model, 16,
                      {"fused_tau_leap_update": 0, "reverse_rates": 0,
@@ -3624,6 +3650,380 @@ def phase_d3pm(dev, tmpdir: str, data_path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data parallelism, the figure loggers and the loop's figures
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 5  # (a) steps of each one-rank DP step against the single-device step
+DP_TRAIN_STEPS = 10  # (b) train()'s DP branch over two ranks on the one card
+DP_SAMPLER_STEPS = 100  # (c) fused TauL steps of the DP sampler (the preset's 1000, cut)
+GRID_TRAIN_STEPS = 20  # (d) train() with its in-loop grid at the last step
+DP_LOSS_RTOL = 1e-6  # (b) the 10th loss against the shard losses recomputed here
+
+
+def params_digest(params) -> str:
+    """sha256 of every parameter's bytes, in order."""
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in params.values()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def states_equal(a, b) -> bool:
+    """Parameters, EMA and Adam's moments bit for bit, and the counters."""
+    trees = ((a.params, b.params), (a.ema_params, b.ema_params),
+             (a.opt_state.mu, b.opt_state.mu), (a.opt_state.nu, b.opt_state.nu))
+    same = all(torch.equal(x[k], y[k]) for x, y in trees for k in a.params)
+    return same and (a.step, a.opt_state.count, a.ema_num_updates) == \
+        (b.step, b.opt_state.count, b.ema_num_updates)
+
+
+class no_matplotlib:
+    """Inside the block `import matplotlib` fails, as on a machine without
+    it: the loggers and the loss curve take their PNG-only paths whatever
+    this machine has installed."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("matplotlib", False)
+        sys.modules["matplotlib"] = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is False:
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = self.saved
+
+
+def dp_one_rank(dev, data_path: str, mesh) -> dict:
+    """(a) On a one-rank NCCL group: make_dp_train_step and
+    make_device_data_train_step against make_train_step and
+    make_device_data_step, DP_STEPS steps at B=64 from the same weights under
+    deterministic_training; parameters, EMA and moments bit-identical. A
+    control that scales one gradient leaf by 1 + 2^-10 before the reduction
+    must break the hold."""
+    from ctdd_tpu_torch.losses.losses import get_loss
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.parallel import dp
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+    from ctdd_tpu_torch.training.state import create_train_state
+    from ctdd_tpu_torch.training.train_step import make_device_data_step, make_train_step
+    from ctdd_tpu_torch.utils.device import deterministic_training
+
+    cfg = full_cfg(fused=True)
+    B, decay = cfg.data.batch_size, float(cfg.model.ema_decay)
+    data = torch.from_numpy(np.load(data_path)["x_train"].reshape(-1, 784).astype(np.int32)).to(dev)
+
+    def run(build, device_data: bool):
+        model = create_model(cfg, device=dev)
+        model.net.init_weights(torch.Generator().manual_seed(0))
+        tx = get_optimizer(cfg)
+        state = create_train_state(dict(model.net.named_parameters()), tx)
+        step = build(model, get_loss(cfg), tx)
+        for i in range(DP_STEPS):
+            state, _ = step(state, data if device_data else data[i * B:(i + 1) * B], 0)
+        return state
+
+    builds = {
+        "host batches": (lambda m, l, t: make_train_step(m, l, t, ema_decay=decay),
+                         lambda m, l, t: dp.make_dp_train_step(m, l, t, mesh, ema_decay=decay)),
+        "device data": (lambda m, l, t: make_device_data_step(m, l, t, B, ema_decay=decay),
+                        lambda m, l, t: dp.make_device_data_train_step(m, l, t, mesh, B,
+                                                                       ema_decay=decay)),
+    }
+    out = {}
+    with deterministic_training(dev):
+        for name, (single, parallel) in builds.items():
+            device_data = name == "device data"
+            want = run(single, device_data)
+            out[name] = states_equal(run(parallel, device_data), want)
+            if name == "host batches":
+                real = dp.pmean
+
+                def perturbed(mesh_, loss, grads):
+                    next(iter(grads.values())).mul_(1.0 + 2.0 ** -10)
+                    return real(mesh_, loss, grads)
+
+                dp.pmean = perturbed
+                try:
+                    out["control: one leaf scaled before the reduction"] = states_equal(
+                        run(parallel, device_data), want)
+                finally:
+                    dp.pmean = real
+    log(f"  (a) one-rank {mesh.backend} group, {DP_STEPS} steps at B={B}, DP vs single "
+        f"device bit-identical (params, EMA, moments, counters): {out}")
+    if not (out["host batches"] and out["device data"]):
+        raise AssertionError(f"one-rank DP differs from the single-device step: {out}")
+    if out["control: one leaf scaled before the reduction"]:
+        raise AssertionError("the DP hold passed a gradient perturbed before the reduction")
+    return out
+
+
+def _dp_train_rank(rank: int, world: int, port: int, tmpdir: str, data_path: str,
+                   device: str):
+    """(b) One rank of train()'s DP branch on `device`, the card the ranks
+    share (gloo): its parameters' digest after every step, its step losses
+    and rate, to `tmpdir/dp_rank<r>.json`."""
+    from ctdd_tpu_torch.parallel.dryrun import join_group
+    from ctdd_tpu_torch.training import loop
+
+    mesh = join_group(rank, world, port, device)
+    digests = []
+    made = loop.make_device_data_train_step
+
+    def recording(*args, **kwargs):
+        step = made(*args, **kwargs)
+
+        def rec(state, data, seed):
+            state, lv = step(state, data, seed)
+            digests.append(params_digest(state.params))
+            return state, lv
+
+        return rec
+
+    loop.make_device_data_train_step = recording
+    try:
+        cfg = train_cfg(tmpdir, data_path, "dp_two_ranks")
+        cfg.sampler.sample_freq = 0
+        cfg.saving.checkpoint_freq = DP_TRAIN_STEPS - 1
+        _, info = loop.train(cfg, n_iters=DP_TRAIN_STEPS, seed=0, mesh=mesh,
+                             log_every=DP_TRAIN_STEPS)
+        with open(f"{tmpdir}/dp_rank{rank}.json", "w") as f:
+            json.dump(dict(device=str(mesh.device), backend=mesh.backend, digests=digests,
+                           step_losses=info["step_losses"],
+                           steps_per_sec=info["steps_per_sec"], paths=info["paths"]), f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_two_ranks(dev, tmpdir: str, data_path: str) -> dict:
+    """(b) Two processes on the one card over gloo run train()'s DP branch
+    (the dataset on the device: make_device_data_train_step, 32 rows a rank
+    of the global 64): parameters bit-identical after every step, rank 0's
+    checkpoints alone, and the last step's loss against the mean of the two
+    shard losses recomputed here from rank 0's checkpoint before it."""
+    from ctdd_tpu_torch.losses.losses import get_loss
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.parallel.dryrun import spawn
+    from ctdd_tpu_torch.training.train_step import make_loss_fn, step_generator
+    from ctdd_tpu_torch.utils.bookkeeping import load_checkpoint
+    from ctdd_tpu_torch.utils.device import deterministic_training
+
+    t0 = time.perf_counter()
+    spawn(_dp_train_rank, 2, tmpdir, data_path, dev.type)
+    seconds = time.perf_counter() - t0
+    ranks = [json.load(open(f"{tmpdir}/dp_rank{r}.json")) for r in range(2)]
+    same_steps = [a == b for a, b in zip(ranks[0]["digests"], ranks[1]["digests"])]
+    paths = ranks[0]["paths"]
+    runs = os.listdir(os.path.dirname(paths["root"]))
+    ckpts = sorted(os.listdir(paths["checkpoints"]), key=lambda f: int(f.split(".")[0]))
+
+    cfg = train_cfg(tmpdir, data_path, "dp_recompute")
+    model = create_model(cfg, device=dev)
+    before = load_checkpoint(f"{paths['checkpoints']}/{DP_TRAIN_STEPS - 1}.pt",
+                             map_location=dev)["params"]
+    data = torch.from_numpy(np.load(data_path)["x_train"].reshape(-1, 784).astype(np.int32)).to(dev)
+    loss_fn = make_loss_fn(model, get_loss(cfg))
+    shard_losses = []
+    with deterministic_training(dev):
+        for r in range(2):
+            gen = step_generator(0, DP_TRAIN_STEPS - 1, dev, rank=r)
+            idx = torch.randint(0, data.shape[0], (cfg.data.batch_size // 2,), generator=gen,
+                                device=dev)
+            shard_losses.append(float(loss_fn(before, data[idx], gen, None, DP_TRAIN_STEPS - 1)))
+    logged = ranks[0]["step_losses"][-1]
+    mean = (shard_losses[0] + shard_losses[1]) / 2
+    rel = abs(logged - mean) / abs(mean)
+    out = dict(seconds=seconds, ranks_on=[r["device"] for r in ranks],
+               backend=ranks[0]["backend"], bit_identical_every_step=all(same_steps),
+               steps=len(same_steps), logged_last_loss=logged, shard_losses=shard_losses,
+               last_loss_rel_err=rel, run_folders=len(runs), checkpoints=ckpts,
+               steps_per_s_rank0=ranks[0]["steps_per_sec"],
+               steps_per_s_rank1=ranks[1]["steps_per_sec"])
+    log(f"  (b) train() on 2 ranks ({out['ranks_on']}, {out['backend']}), {DP_TRAIN_STEPS} "
+        f"steps at global B={cfg.data.batch_size}: parameters bit-identical after every "
+        f"step: {same_steps}; last loss {logged:.6f} vs the mean of the shard losses "
+        f"{mean:.6f} (rel {rel:.2e}, limit {DP_LOSS_RTOL:.0e}); run folders {len(runs)}, "
+        f"checkpoints {ckpts}; {out['steps_per_s_rank0']:.3f} / "
+        f"{out['steps_per_s_rank1']:.3f} steps/s (ranks 0 / 1); {seconds:.1f} s with the "
+        "processes' start")
+    if len(same_steps) != DP_TRAIN_STEPS or not all(same_steps):
+        raise AssertionError(f"the ranks' parameters differ: {same_steps}")
+    if ranks[0]["step_losses"] != ranks[1]["step_losses"]:
+        raise AssertionError("the ranks logged different losses")
+    if not rel <= DP_LOSS_RTOL:
+        raise AssertionError(f"the last loss is not the mean of the shard losses: {out}")
+    if len(runs) != 1 or ckpts != [f"{DP_TRAIN_STEPS - 1}.pt", f"{DP_TRAIN_STEPS}.pt"]:
+        raise AssertionError(f"checkpoints beyond rank 0's: {runs}, {ckpts}")
+    return out
+
+
+def dp_sampler(dev, mesh) -> dict:
+    """(c) make_dp_sampler on the one-rank group: N=16, fused TauL for
+    DP_SAMPLER_STEPS steps, exactly one fused launch a step, samples
+    bit-identical to sampler.sample from the same rank-keyed generator."""
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.parallel.dp import make_dp_sampler, rank_generator
+    from ctdd_tpu_torch.sampling.samplers import get_sampler
+    from ctdd_tpu_torch.utils.device import deterministic_training
+
+    cfg = full_cfg(fused=True)
+    cfg.sampler.num_steps = DP_SAMPLER_STEPS
+    model = create_model(cfg, device=dev)
+    model.net.init_weights(torch.Generator().manual_seed(0))
+    model.net.eval()
+    sampler = get_sampler(cfg)
+    sample = make_dp_sampler(sampler, mesh)
+    with deterministic_training(dev):  # the two runs' network calls bit for bit
+        sample(model, model.net, 1, 16)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: sample(model, model.net, 11, 16))
+        seconds = time.perf_counter() - t0
+        want, _ = sampler.sample(model, model.net, rank_generator(11, 0, dev), 16)
+    out = dict(launches=launches, seconds=seconds, samples_per_s=16 / seconds,
+               step_ms=seconds * 1e3 / DP_SAMPLER_STEPS, equal=bool(np.array_equal(got, want)))
+    log(f"  (c) DP sampler, 1 rank, N=16, fused TauL/{DP_SAMPLER_STEPS}: {seconds:.3f} s "
+        f"({out['step_ms']:.3f} ms a step, {out['samples_per_s']:.3f} samples/s); launches "
+        f"{launches}; bit-identical to sampler.sample: {out['equal']}")
+    if launches != {"fused_tau_leap_update": DP_SAMPLER_STEPS, "reverse_rates": 0,
+                    "euler_posterior": 0}:
+        raise AssertionError(f"DP sampler launches {launches}")
+    if not out["equal"] or got.shape != (16, 784):
+        raise AssertionError("the DP sampler's samples differ from sampler.sample's")
+    return out
+
+
+def logger_figures(dev, tmpdir: str, data_path: str) -> dict:
+    """(d) Both loggers on the card with NumpyWriter and no matplotlib: each
+    PNG read back through zlib equals its panels; train() for
+    GRID_TRAIN_STEPS steps with its in-loop grid (TauL/100) leaves
+    samples_<n>.png beside the .npy and prints the loss-curve line."""
+    import contextlib
+    import io
+
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.loggers import loggers as L
+    from ctdd_tpu_torch.models.base import create_model
+    from ctdd_tpu_torch.training.loop import train
+    from ctdd_tpu_torch.training.optimizers import get_optimizer
+    from ctdd_tpu_torch.training.state import create_train_state
+    from ctdd_tpu_torch.utils.bookkeeping import NumpyWriter
+    from ctdd_tpu_torch.utils.png import read_png
+
+    out, writer = {}, NumpyWriter(f"{tmpdir}/loggers")
+    images = np.load(data_path)["x_train"][:4].reshape(4, 1, 28, 28)
+    notes_cfg = get_preset("pianoroll_cond")
+    notes = np.random.default_rng(3).integers(0, notes_cfg.data.S, (2, 256))
+    with no_matplotlib():
+        for name, cfg, batch in (("denoisingImages", full_cfg(fused=True), images),
+                                 ("ConditionalDenoisingNoteSeq", notes_cfg, notes)):
+            model = create_model(cfg, device=dev)
+            model.net.init_weights(torch.Generator().manual_seed(0))
+            state = create_train_state(dict(model.net.named_parameters()), get_optimizer(cfg))
+            state.step = GRID_TRAIN_STEPS
+            t0 = time.perf_counter()
+            panels = L.get_logger(name)(state=state, cfg=cfg, writer=writer, minibatch=batch,
+                                        model=model)
+            seconds = time.perf_counter() - t0
+            img = read_png(f"{tmpdir}/loggers/{name}_{GRID_TRAIN_STEPS}.png")
+            want = (L.denoising_grid(panels, tuple(cfg.data.shape), cfg.data.S)
+                    if name == "denoisingImages" else L.noteseq_grid(panels, cfg.data.S))
+            out[name] = dict(png_shape=list(img.shape), seconds=seconds,
+                             equal=bool(img.shape == want.shape and (img == want).all()))
+            log(f"  (d) {name}: {seconds:.3f} s on the card; its PNG {img.shape} read back "
+                f"equal to the panels: {out[name]['equal']}")
+            if not out[name]["equal"]:
+                raise AssertionError(f"{name}'s PNG differs from its panels")
+
+        cfg = train_cfg(tmpdir, data_path, "grid19")
+        cfg.sampler.sample_freq = cfg.saving.checkpoint_freq = GRID_TRAIN_STEPS
+        cfg.sampler.num_steps = 100
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            (_, info), launches = counted(lambda: train(cfg, n_iters=GRID_TRAIN_STEPS, seed=0,
+                                                        device=dev, log_every=10))
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f"    {line}")
+    pngs, root = info["paths"]["pngs"], info["paths"]["root"]
+    samples = np.load(f"{pngs}/samples_{GRID_TRAIN_STEPS}.npy")
+    grid = read_png(f"{pngs}/samples_{GRID_TRAIN_STEPS}.png")
+    out["train_grid"] = dict(
+        launches=launches, grid_png_shape=list(grid.shape),
+        grid_equal=bool((grid == L.sample_grid(samples, (1, 28, 28), 256)).all()),
+        loss_curve_line=[s for s in lines if s.startswith("loss curve:")],
+        loss_curve_png=os.path.exists(f"{root}/loss_curve.png"),
+        steps_per_s=info["steps_per_sec"])
+    log(f"  (d) train() {GRID_TRAIN_STEPS} steps, grid TauL/100: launches {launches}; "
+        f"samples_{GRID_TRAIN_STEPS}.png {grid.shape} beside the .npy, equal to its "
+        f"samples: {out['train_grid']['grid_equal']}; loss curve: "
+        f"{out['train_grid']['loss_curve_line']}")
+    if launches != {"fused_tau_leap_update": 100, "reverse_rates": 0, "euler_posterior": 0}:
+        raise AssertionError(f"in-loop grid launches {launches}")
+    if not out["train_grid"]["grid_equal"] or grid.shape != (4 * 28, 4 * 28):
+        raise AssertionError("the in-loop PNG grid differs from its samples")
+    if len(out["train_grid"]["loss_curve_line"]) != 1 or out["train_grid"]["loss_curve_png"]:
+        raise AssertionError(f"the loss-curve line: {out['train_grid']}")
+    return out
+
+
+def d3pm_table_build(preset: str = "mnist_d3pm") -> dict:
+    """Seconds of the host build of a D3PM preset's tables alone (the
+    process's cache cleared first), on whatever runs this."""
+    from ctdd_tpu_torch.config.presets import get_preset
+    from ctdd_tpu_torch.d3pm import diffusion as D
+
+    m = get_preset(preset).model
+    betas = np.asarray(D.get_diffusion_betas(m), np.float64)
+    D._host_tables.cache_clear()
+    t0 = time.perf_counter()
+    D._host_tables(betas.tobytes(), m.transition_mat_type, m.transition_bands,
+                   m.num_pixel_vals)
+    return dict(preset=preset, seconds=time.perf_counter() - t0, cores=os.cpu_count())
+
+
+def phase_parallel(dev, tmpdir: str, data_path: str) -> dict:
+    """Phase [19]: (e)'s dry run starts first, on the CPU, beside (a), (c)
+    and (d) on the card; (b) runs alone after them, since it reports a rate."""
+    from ctdd_tpu_torch.parallel.dryrun import free_port
+    from ctdd_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    t0 = time.perf_counter()
+    dryrun = subprocess.Popen(
+        [sys.executable, "-m", "ctdd_tpu_torch.parallel.dryrun", "--nprocs", "2",
+         "--device", "cpu"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    out = {}
+    try:
+        initialize_multihost(f"localhost:{free_port()}", 1, 0, device=dev)
+        try:
+            mesh = make_mesh(1, device=dev)
+            out["one_rank"] = dp_one_rank(dev, data_path, mesh)
+            out["sampler"] = dp_sampler(dev, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+        out["loggers"] = logger_figures(dev, tmpdir, data_path)
+        stdout, stderr = dryrun.communicate(timeout=300)
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
+    ok = [s for s in stdout.splitlines() if s.startswith("dryrun_multichip(2) ok")]
+    out["dryrun"] = dict(returncode=dryrun.returncode, line=ok)
+    log(f"  (e) python -m ctdd_tpu_torch.parallel.dryrun --nprocs 2 --device cpu: exit "
+        f"{dryrun.returncode}, {ok}")
+    if dryrun.returncode != 0 or not ok:
+        raise AssertionError(f"the dry run failed:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    out["d3pm_tables"] = d3pm_table_build()
+    log(f"  (e) mnist_d3pm's host table build alone: {out['d3pm_tables']['seconds']:.2f} s "
+        f"on {out['d3pm_tables']['cores']} host cores")
+    out["two_ranks"] = dp_two_ranks(dev, tmpdir, data_path)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase [19]: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3723,6 +4123,8 @@ def main() -> int:
         stage("[18] the D3PM baseline (mnist_d3pm, synthetic_d3pm, protein_maze_d3pm) and "
               "on-device augmentation")
         d3pm = phase_d3pm(dev, tmpdir, data_path)
+        stage("[19] data parallelism, the figure loggers and the loop's figures")
+        parallel = phase_parallel(dev, tmpdir, data_path)
 
     by_request = {"tauUnet_mnist TauL fused n=16": launches,
                   **{label: counts for label, (counts, _) in served.items()},
@@ -3762,7 +4164,11 @@ def main() -> int:
                   f"mnist_d3pm train() in-loop grid TauL/{D3PM_GRID_STEPS} n=16":
                       d3pm["training"]["mnist_d3pm"]["grid_launches"],
                   **{f"eval {name}": r["kernel_launches"]
-                     for name, r in d3pm["evals"].items()}}
+                     for name, r in d3pm["evals"].items()},
+                  f"DP sampler 1 rank n=16 TauL/{DP_SAMPLER_STEPS}":
+                      parallel["sampler"]["launches"],
+                  f"train() in-loop PNG grid at step {GRID_TRAIN_STEPS} TauL/100":
+                      parallel["loggers"]["train_grid"]["launches"]}
 
     # device time of one launch inside a batch-16 step (torch.profiler),
     # where the kernel's input is what the network has just written
@@ -3849,6 +4255,7 @@ def main() -> int:
     log("slice8: " + json.dumps({**slice8, "card": card_line()}))
     log("slice9: " + json.dumps({**slice9, "card": card_line()}))
     log("d3pm: " + json.dumps({**d3pm, "card": card_line()}))
+    log("parallel: " + json.dumps({**parallel, "card": card_line()}))
     for k in record["kernels"]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

@@ -6,7 +6,9 @@ same `RandomState`, every function returns bit-identical arrays.
 swissroll, circles and moons branches), `OnlineToyDataset` wraps it with the
 reference's int_scale calibration, `float2bin`/`bin2float` map (N, 2) floats
 to (N, D) bits and back with vectorized integer bit-math, and
-`generate_dataset` makes a binarized dataset.
+`generate_dataset` makes a binarized dataset, and `python -m
+ctdd_tpu_torch.data.synthetic` writes one to an .npy file (JAX's CLI: the
+same flags, the same bytes for the same seed).
 """
 
 from __future__ import annotations
@@ -192,3 +194,50 @@ def generate_dataset(
         os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
         np.save(save_path, data.astype(np.int8))
     return data, meta
+
+
+def _main(argv=None):
+    """Standalone dataset-generator CLI.
+
+    python -m ctdd_tpu_torch.data.synthetic --type 2spirals --num-samples 100000 \\
+        --out DataSynthetic/data_2spirals.npy [--plot samples.png]
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("--type", required=True,
+                    help="swissroll|circles|moons|8gaussians|pinwheel|"
+                         "2spirals|checkerboard|line|cos")
+    ap.add_argument("--num-samples", type=int, default=100000)
+    ap.add_argument("--discrete-dim", type=int, default=32)
+    ap.add_argument("--binmode", default="gray", choices=["gray", "normal"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", required=True, help=".npy output path")
+    ap.add_argument("--plot", default=None,
+                    help="optional scatter plot of the decoded floats (needs matplotlib)")
+    args = ap.parse_args(argv)
+
+    data, meta = generate_dataset(
+        args.type, args.num_samples, discrete_dim=args.discrete_dim,
+        binmode=args.binmode, seed=args.seed, save_path=args.out,
+    )
+    print(f"{data.shape[0]} samples -> {args.out} "
+          f"(D={data.shape[1]}, int_scale={meta['int_scale']:.4f})")
+    if args.plot:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        f = bin2float(data[:10000].astype(np.int32), args.discrete_dim,
+                      meta["int_scale"], args.binmode)
+        fig, ax = plt.subplots(figsize=(5, 5))
+        ax.scatter(f[:, 0], f[:, 1], s=1, alpha=0.4)
+        ax.set_title(args.type)
+        fig.savefig(args.plot, dpi=120)
+        plt.close(fig)
+        print(f"plot -> {args.plot}")
+
+
+if __name__ == "__main__":
+    _main()

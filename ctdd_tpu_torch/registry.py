@@ -55,3 +55,4 @@ losses = Registry("loss")
 optimizers = Registry("optimizer")
 train_steps = Registry("train_step")
 datasets = Registry("dataset")
+loggers = Registry("logger")

@@ -10,6 +10,11 @@ Usage:
 Runs on the GPU unless `--device cpu` is given, and never falls back.
 Checkpoints land in <save_location>/<date>/<experiment>_<time>/checkpoints/
 as <step>.pt files that `python -m ctdd_tpu_torch.serve --ckpt` serves.
+
+Data-parallel: under torchrun (which sets WORLD_SIZE and RANK) each process
+joins the process group from that environment (NCCL on cards, gloo with
+`--device cpu`) and trains one rank, one card a process:
+  torchrun --nproc_per_node 4 -m ctdd_tpu_torch.train --preset tauUnet_mnist
 """
 
 from __future__ import annotations
@@ -39,6 +44,12 @@ def main(argv=None):
     from ctdd_tpu_torch.utils.bookkeeping import check_for_preempted_run
 
     cfg = apply_overrides(get_preset(args.preset), parse_overrides(args.set))
+    mesh = None
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        from ctdd_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+        initialize_multihost(device=args.device)
+        mesh = make_mesh(device=args.device)
     if args.auto_resume and args.resume is None:
         found = check_for_preempted_run(cfg.save_location, cfg.experiment_name, cfg)
         if found:
@@ -46,9 +57,14 @@ def main(argv=None):
             print(f"auto-resume: {args.resume}")
     state, info = train(cfg, n_iters=args.iters, seed=args.seed,
                         resume_from=args.resume, writer_kind=args.writer,
-                        device=args.device)
-    print(f"done: step={state.step} steps/sec={info['steps_per_sec']:.3f} "
-          f"run={info['paths']['root']}")
+                        mesh=mesh, device=args.device)
+    if mesh is None or mesh.rank == 0:
+        print(f"done: step={state.step} steps/sec={info['steps_per_sec']:.3f} "
+              f"run={info['paths']['root']}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

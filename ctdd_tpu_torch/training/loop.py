@@ -1,8 +1,8 @@
-"""The training loop, on one device.
+"""The training loop, on one device or data-parallel over several ranks.
 
-Counterpart of the single-device paths of ctdd_tpu/training/loop.py: train
-step (over a dataset on the device, or host batches when the dataset is
-larger than `training.device_data_bytes`) -> periodic checkpoint, loss log
+Counterpart of ctdd_tpu/training/loop.py: train step (over a dataset on
+the device, or host batches when the dataset is larger than
+`training.device_data_bytes`) -> periodic checkpoint, loss log
 and sample grid with the EMA weights -> a final checkpoint, with a
 checkpoint between steps after SIGTERM/SIGINT/SIGCONT. With
 `data.stream_fresh` a dataset that can `regenerate` (the maze and sudoku
@@ -14,13 +14,26 @@ stream. On a CUDA device cuDNN and the attention backward run
 deterministic for the whole run.
 A label-conditional model (DiT) over a labelled dataset trains with the
 batch's labels (only NLLOriginal conditions on them) and draws its grid
-one class per row. Sample grids are saved as `samples_<step>.npy` (the PNG
-grid and the loss-curve PNG wait for the loggers port). With `loss.name=d3pm`
+one class per row. Sample grids are saved as `samples_<step>.npy`, and for
+image shapes also as the PNG `samples_<step>.png` (the port's own encoder,
+no matplotlib); at the end the logged losses are plotted to
+`loss_curve.png` where matplotlib can be imported. With `loss.name=d3pm`
 the loss is the D3PM baseline's (`d3pm/diffusion.py`); a D3PM model without
 a CTMC process draws no in-loop grid (it samples through the eval CLI), while
 `mnist_d3pm`'s UNet, which has one, draws its TauL grid as JAX's loop does.
 With `data.use_augm` the batch is rotated or flipped on the device inside the
 step (`data/augment.py`).
+
+The steps are parallel/dp.py's at any world size; on the one-rank mesh
+without a process group their reduction is the identity, and they are the
+single-device steps of training/train_step.py. Given a mesh of more than
+one rank (parallel/mesh.py), every rank trains a full copy with the
+mean-reduced steps: over its own copy of a dataset on the device
+(`batch_size // world` rows a rank), or over its shard of each host batch
+(every rank draws the same global batches). Rank 0 alone creates the run
+folder and writes the config, checkpoints, the loss log, the grids and the
+loss curve; every rank restores the same checkpoint on a resume, and a
+signal on any rank stops all of them at the same step.
 """
 
 from __future__ import annotations
@@ -38,14 +51,16 @@ from ctdd_tpu_torch.config.base import save_config
 from ctdd_tpu_torch.d3pm.diffusion import D3PMLoss, make_diffusion
 from ctdd_tpu_torch.data.augment import make_augment_fn
 from ctdd_tpu_torch.data.loaders import get_dataset, iterate_batches
+from ctdd_tpu_torch.loggers.loggers import pyplot, sample_grid
 from ctdd_tpu_torch.losses.losses import get_loss
 from ctdd_tpu_torch.models.base import create_model
+from ctdd_tpu_torch.parallel.dp import make_device_data_train_step, make_dp_train_step
+from ctdd_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from ctdd_tpu_torch.sampling.samplers import get_sampler
 from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
-from ctdd_tpu_torch.training.train_step import make_device_data_step, make_train_step
-from ctdd_tpu_torch.utils import bookkeeping
-from ctdd_tpu_torch.utils.device import deterministic_training, resolve_device
+from ctdd_tpu_torch.utils import bookkeeping, png
+from ctdd_tpu_torch.utils.device import deterministic_training
 
 
 def _refuse_unported(model):
@@ -131,10 +146,12 @@ class PoolStream:
 
 
 def _save_sample_grid(cfg, model, state, sampler, out_dir: str, step: int,
-                      n_samples: int = 16, dataset=None) -> Optional[str]:
-    """Sample with the EMA weights (seeded by the step); save the states. A
-    label-conditional model samples one class per row (`data.num_classes`,
-    10 by default; `sampler.cfg_scale`, 0 by default): trained with a real
+                      n_samples: int = 16, dataset=None, writer=None) -> Optional[str]:
+    """Sample with the EMA weights (seeded by the step); save the states,
+    and for an image shape (C, H, W) their grid as `samples_<step>.png`,
+    also handed to `writer.add_image`. A label-conditional model samples
+    one class per row (`data.num_classes`, 10 by default;
+    `sampler.cfg_scale`, 0 by default): trained with a real
     or the null label embedding on every forward, it never sees a forward
     without one. A prefix-conditional sampler takes the first `n_samples`
     training prefixes, and is skipped where the dataset holds fewer."""
@@ -154,6 +171,32 @@ def _save_sample_grid(cfg, model, state, sampler, out_dir: str, step: int,
         samples, _ = sampler.sample(model, state.ema_params, gen, N=n_samples, **kwargs)
     path = os.path.join(out_dir, f"samples_{step}.npy")
     np.save(path, samples)
+    shape = cfg.data.get("shape", None)
+    if shape is not None and len(shape) == 3:
+        grid = sample_grid(samples, shape, int(cfg.data.S))
+        png.write_png(os.path.join(out_dir, f"samples_{step}.png"), grid)
+        if writer is not None:
+            writer.add_image("samples", grid, step,
+                             dataformats="HW" if grid.ndim == 2 else "HWC")
+    return path
+
+
+def _save_loss_curve(losses, log_every: int, n_start: int, root: str) -> Optional[str]:
+    """`loss_curve.png` of the logged losses, where matplotlib imports;
+    else one line says none was drawn (`loss.npz` of the numpy writer holds
+    the same losses)."""
+    plt = pyplot()
+    if plt is None:
+        print("loss curve: matplotlib is not installed; no loss_curve.png (the logged "
+              "losses are in the writer's loss.npz)", flush=True)
+        return None
+    fig, ax = plt.subplots()
+    ax.plot(np.arange(len(losses)) * log_every + n_start, losses)
+    ax.set_xlabel("iteration")
+    ax.set_ylabel("loss")
+    path = os.path.join(root, "loss_curve.png")
+    fig.savefig(path)
+    plt.close(fig)
     return path
 
 
@@ -164,28 +207,33 @@ def train(
     seed: int = 0,
     resume_from: Optional[str] = None,
     writer_kind: str = "numpy",
+    mesh=None,
     log_every: int = 100,
     profile_steps: Optional[tuple] = None,
     device=None,
 ):
-    """Run training on `device` (the GPU unless the caller passes another);
-    returns (state, info). `info["steps_per_sec"]` is the steady-state rate:
+    """Run training on `device` (the GPU unless the caller passes another),
+    or on each rank of `mesh` at its device (default: `make_mesh`, which
+    is one rank unless a process group is initialized); returns (state,
+    info). `info["steps_per_sec"]` is the steady-state rate:
     the first step, sample grids and checkpoint saves are left out.
     `info["losses"]` holds the logged losses, `info["step_losses"]` every
     step's (the 1e9 sentinel where a step was skipped), `info["pool_swaps"]`
     the fresh-pool swaps (`PoolStream.swaps`). On a CUDA device cuDNN and
     the attention backward run deterministic (`deterministic_training`)
     until it returns."""
-    device = resolve_device(device)
-    with deterministic_training(device):
+    mesh = mesh if mesh is not None else make_mesh(device=device)
+    with deterministic_training(mesh.device):
         return _train(cfg, n_iters=n_iters, seed=seed, resume_from=resume_from,
                       writer_kind=writer_kind, log_every=log_every,
-                      profile_steps=profile_steps, device=device)
+                      profile_steps=profile_steps, mesh=mesh)
 
 
 def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
-           profile_steps, device):
+           profile_steps, mesh):
     n_iters = n_iters if n_iters is not None else cfg.training.n_iters
+    device = mesh.device
+    lead = mesh.rank == 0
 
     # PyTorch's default init draws from the global generator: leave the
     # caller's as it was; the weights are then drawn from `seed` as the JAX
@@ -195,10 +243,13 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
     _refuse_unported(model)
     model.net.init_weights(torch.Generator().manual_seed(seed))
 
-    paths = bookkeeping.create_experiment_folder(cfg.save_location, cfg.experiment_name)
-    save_config(cfg, os.path.join(paths["config"], "config.json"))
-    writer = bookkeeping.setup_writer(writer_kind, paths["root"])
-    ckpt = bookkeeping.CheckpointManager(paths["checkpoints"], cfg)
+    paths = None
+    if lead:
+        paths = bookkeeping.create_experiment_folder(cfg.save_location, cfg.experiment_name)
+        save_config(cfg, os.path.join(paths["config"], "config.json"))
+    paths = mesh.broadcast_object(paths)
+    writer = bookkeeping.setup_writer(writer_kind if lead else "none", paths["root"])
+    ckpt = bookkeeping.CheckpointManager(paths["checkpoints"], cfg) if lead else None
 
     if cfg.loss.name == "d3pm":
         loss = D3PMLoss(cfg, make_diffusion(cfg.model, device=device))
@@ -234,32 +285,36 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
             dataset.data.reshape(len(dataset), -1).astype(np.int32)).to(device)
         if has_label:
             data = (data, torch.from_numpy(np.asarray(dataset.labels, np.int64)).to(device))
-        step_fn = make_device_data_step(model, loss, tx, cfg.data.batch_size,
-                                        ema_decay=ema_decay, has_label=has_label,
-                                        augment_fn=augment_fn)
+        step_fn = make_device_data_train_step(
+            model, loss, tx, mesh, cfg.data.batch_size, ema_decay=ema_decay,
+            has_label=has_label, augment_fn=augment_fn)
     else:
         batches = iterate_batches(dataset, cfg.data.batch_size,
                                   shuffle=cfg.data.get("shuffle", True), seed=seed)
         # JAX spends the stream's first batch on model.init and trains from
         # the second: skip it, so both packages train on the same batches
         next(batches)
-        step_fn = make_train_step(model, loss, tx, ema_decay=ema_decay,
-                                  augment_fn=augment_fn)
+        step_fn = make_dp_train_step(model, loss, tx, mesh, ema_decay=ema_decay,
+                                     has_label=has_label, augment_fn=augment_fn)
 
     checkpoint_freq = cfg.saving.get("checkpoint_freq", 10000)
     sample_freq = cfg.sampler.get("sample_freq", 0)
     # the CTMC samplers need a process: a D3PM model without one samples
     # ancestrally through the eval CLI
     has_process = model.process is not None
-    sampler = (get_sampler(cfg) if sample_freq and sample_freq <= n_iters and has_process
-               else None)
-    if sample_freq and not has_process:
+    sampler = (get_sampler(cfg)
+               if lead and sample_freq and sample_freq <= n_iters and has_process else None)
+    if lead and sample_freq and not has_process:
         print("in-loop sample grids disabled: model has no CTMC process "
               "(d3pm family) — use eval.py for sampling", flush=True)
 
-    preempt = bookkeeping.PreemptionHandler(paths["root"])
-    preempt.set_save_fn(lambda: ckpt.save(state.step, state))
+    # a rank above 0 may not see rank 0's run folder (hosts without a shared
+    # filesystem): it only raises the flag
+    preempt = bookkeeping.PreemptionHandler(paths["root"] if lead else None)
+    if lead:
+        preempt.set_save_fn(lambda: ckpt.save(state.step, state))
     preempt.install()
+    profile_steps = profile_steps if lead else None
     losses, step_losses = [], []
     n_start = state.step
     t_first = None  # end of the first step
@@ -275,6 +330,8 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
             stream.prefetch(boundary)
     try:
         for it in range(n_start, n_iters):
+            # every rank stops at the same step
+            preempt.preempted = mesh.any(preempt.preempted)
             preempt.exit_if_preempted()  # between steps, where `state` is whole
             if stream is not None and it > n_start and it % stream.steps_per_pool == 0:
                 if stream.use_async:
@@ -293,10 +350,10 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
                 state, lv = step_fn(state, data, seed)
             else:
                 batch, label = next(batches)
+                batch = shard_batch(batch, mesh)
                 if has_label:
-                    label = torch.from_numpy(np.asarray(label, np.int64)).to(device)
-                state, lv = step_fn(state, torch.from_numpy(batch).to(device), seed,
-                                    label if has_label else None)
+                    label = shard_batch(np.asarray(label, np.int64), mesh)
+                state, lv = step_fn(state, batch, seed, label if has_label else None)
             step_losses.append(lv)
             if prof is not None and it == profile_steps[1]:
                 _sync(device)
@@ -311,19 +368,23 @@ def _train(cfg, *, n_iters, seed, resume_from, writer_kind, log_every,
                 losses.append(lv)
                 writer.add_scalar("loss", lv, it + 1)
                 rate = (it - n_start) / max(t0 - t_first - t_aside, 1e-9)
-                print(f"iter {it + 1}/{n_iters} loss {lv:.5f} ({rate:.1f} steps/s)",
-                      flush=True)
-            if (it + 1) % checkpoint_freq == 0:
+                if lead:
+                    print(f"iter {it + 1}/{n_iters} loss {lv:.5f} ({rate:.1f} steps/s)",
+                          flush=True)
+            if ckpt is not None and (it + 1) % checkpoint_freq == 0:
                 ckpt.save(it + 1, state)
                 # the loss history is durable at every checkpoint
                 writer.flush()
             if sampler is not None and (it + 1) % sample_freq == 0:
                 _save_sample_grid(cfg, model, state, sampler, paths["pngs"], it + 1,
-                                  dataset=dataset)
+                                  dataset=dataset, writer=writer)
             t_aside += time.perf_counter() - t0
         _sync(device)
         elapsed = (time.perf_counter() - t_first - t_aside) if t_first else 0.0
-        ckpt.save(n_iters, state)
+        if ckpt is not None:
+            ckpt.save(n_iters, state)
+            if losses:
+                _save_loss_curve(losses, log_every, n_start, paths["root"])
         preempt.exit_if_preempted()
     finally:
         if prof is not None:  # the window's end lies past the last step

@@ -4,7 +4,11 @@ Counterpart of ctdd_tpu/training/train_step.py, run eagerly. Randomness:
 each step derives its generator, and the seed of the device's default
 generator that dropout draws from, from (seed, state.step), the
 counterpart of `fold_in(key, state.step)`, so a resumed run replays the
-draws of an uninterrupted one.
+draws of an uninterrupted one. A data-parallel rank r > 0 keys them by
+(seed, state.step, r) (`fold_in(fold_in(key, step), r)`); rank 0 keys as
+one device does. The builders take that rank and a `reduce(loss, grads)`
+that runs between the gradients and the update (parallel/dp.py passes the
+mean all-reduce).
 """
 
 from __future__ import annotations
@@ -46,12 +50,14 @@ def value_and_grad(fn: Callable, params: Dict[str, torch.Tensor]):
     return value.detach(), dict(zip(params, grads))
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The step's generator on `device`; seeds the device's default
-    generator (dropout) from the same (seed, step) pair."""
+    generator (dropout) from the same (seed, step) pair, or (seed, step,
+    rank) on a data-parallel rank above 0."""
     device = torch.device(device)
+    entropy = [seed, step] + ([rank] if rank else [])
     s_draw, s_dropout = (int(s) for s in
-                         np.random.SeedSequence([seed, step]).generate_state(2))
+                         np.random.SeedSequence(entropy).generate_state(2))
     if device.type == "cuda":
         with torch.cuda.device(device):
             torch.cuda.manual_seed(s_dropout)
@@ -78,36 +84,45 @@ def apply_update(state: TrainState, loss, grads, tx, ema_decay: float):
                                ema_num_updates=n_updates), value
 
 
-def make_train_step(model, loss, tx, ema_decay: float = 0.0, augment_fn=None) -> Callable:
+def make_train_step(model, loss, tx, ema_decay: float = 0.0, augment_fn=None, *,
+                    rank: int = 0, reduce=None) -> Callable:
     """`step(state, batch, seed, label=None) -> (state, loss)` over a batch
-    the caller supplies."""
+    the caller supplies. `rank` keys the step's draws (`step_generator`);
+    `reduce(loss, grads) -> (loss, grads)`, where given, runs before the
+    update."""
     loss_fn = make_loss_fn(model, loss, augment_fn)
 
     def step(state: TrainState, batch, seed: int, label=None):
-        gen = step_generator(seed, state.step, batch.device)
+        gen = step_generator(seed, state.step, batch.device, rank)
         value, grads = value_and_grad(
             lambda p: loss_fn(p, batch, gen, label, state.step), state.params)
+        if reduce is not None:
+            value, grads = reduce(value, grads)
         return apply_update(state, value, grads, tx, ema_decay)
 
     return step
 
 
 def make_device_data_step(model, loss, tx, batch_size: int, ema_decay: float = 0.0,
-                          has_label: bool = False, augment_fn=None) -> Callable:
+                          has_label: bool = False, augment_fn=None, *,
+                          rank: int = 0, reduce=None) -> Callable:
     """`step(state, data, seed) -> (state, loss)` over a dataset on the
     device, (N, D) int: the batch indices are drawn on the device, uniform
     with replacement, from the step's generator. With `has_label`, `data`
-    is an (x, labels) pair gathered with the same indices."""
+    is an (x, labels) pair gathered with the same indices. `rank` and
+    `reduce` as `make_train_step`'s."""
     loss_fn = make_loss_fn(model, loss, augment_fn)
 
     def step(state: TrainState, data, seed: int):
         x = data[0] if has_label else data
-        gen = step_generator(seed, state.step, x.device)
+        gen = step_generator(seed, state.step, x.device, rank)
         idx = torch.randint(0, x.shape[0], (batch_size,), generator=gen, device=x.device)
         batch = x[idx]
         label = data[1][idx] if has_label else None
         value, grads = value_and_grad(
             lambda p: loss_fn(p, batch, gen, label, state.step), state.params)
+        if reduce is not None:
+            value, grads = reduce(value, grads)
         return apply_update(state, value, grads, tx, ema_decay)
 
     return step

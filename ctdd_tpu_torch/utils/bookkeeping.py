@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ctdd_tpu_torch.config.base import load_config
+from ctdd_tpu_torch.utils import png
 
 
 def _cpu(tree):
@@ -176,11 +177,12 @@ class PreemptionHandler:
     `exit_if_preempted` where its state is whole, which saves a final
     checkpoint and exits 0. The handler itself saves nothing: a step
     updates params, moments and EMA in place, so a save from inside the
-    signal could catch them half updated."""
+    signal could catch them half updated. Without a `run_dir` (a
+    data-parallel rank above 0) it only raises the flag."""
 
     SIGNALS = (signal.SIGCONT, signal.SIGINT, signal.SIGTERM)
 
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: Optional[str]):
         self.run_dir = run_dir
         self._save_fn = None
         self._previous = {}
@@ -201,6 +203,8 @@ class PreemptionHandler:
 
     def _handler(self, signum, frame):
         self.preempted = True
+        if self.run_dir is None:
+            return
         with open(os.path.join(self.run_dir, "preemption_log.txt"), "a") as f:
             f.write(f"{datetime.datetime.now().isoformat()} signal {signum}\n")
 
@@ -248,13 +252,18 @@ def check_for_preempted_run(
 class DummyWriter:
     def add_scalar(self, *a, **k): ...
 
+    def add_figure(self, *a, **k): ...
+
+    def add_image(self, *a, **k): ...
+
     def flush(self): ...
 
     def close(self): ...
 
 
 class NumpyWriter:
-    """Accumulates scalars into `<tag>.npz` files (steps, values)."""
+    """Accumulates scalars into `<tag>.npz` files (steps, values); writes
+    figures and images as `<tag>_<step>.png`."""
 
     def __init__(self, directory: str):
         self.directory = directory
@@ -263,6 +272,23 @@ class NumpyWriter:
 
     def add_scalar(self, tag: str, value, step: int):
         self._scalars.setdefault(tag, []).append((step, float(value)))
+
+    def _png_path(self, tag: str, step: int) -> str:
+        return os.path.join(self.directory, f"{tag.replace('/', '_')}_{step}.png")
+
+    def add_figure(self, tag: str, fig, step: int) -> str:
+        """Save a matplotlib figure."""
+        path = self._png_path(tag, step)
+        fig.savefig(path)
+        return path
+
+    def add_image(self, tag: str, img, step: int, dataformats: str = "HW") -> str:
+        """Write a uint8 (H, W) or (H, W, 3) image (`dataformats` "HW" or
+        "HWC", as tensorboard's writer names them) with the port's own PNG
+        encoder."""
+        if dataformats not in ("HW", "HWC"):
+            raise ValueError(f"dataformats {dataformats!r}: HW or HWC")
+        return png.write_png(self._png_path(tag, step), np.asarray(img))
 
     def flush(self):
         for tag, vals in self._scalars.items():

@@ -113,6 +113,47 @@ def test_mnist_d3pm_gaussian_rows_bit_equal_at_full_width():
                                       JD._gaussian_band_mat(b, 256, None))
 
 
+def mnist_d3pm_betas():
+    return JD.get_diffusion_betas(jax_get_preset("mnist_d3pm").model)
+
+
+def test_mnist_d3pm_batched_onestep_bit_equal_to_jax():
+    """S=256, float64: the batched build of all 1000 one-step matrices equals
+    JAX's per-beta matrices at every 25th beta (its row sums too: summed
+    along a strided axis they differed by up to 3.5e-14 relative)."""
+    betas = mnist_d3pm_betas()
+    mats = TD._gaussian_band_mats(betas, 256, None)
+    for t in range(0, len(betas), 25):
+        np.testing.assert_array_equal(mats[t], JD._gaussian_band_mat(betas[t], 256, None))
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "uniform"])
+def test_mnist_d3pm_batched_onestep_bit_equal_to_per_beta(kind):
+    """The batched build equals the port's own one-beta build at all 1000
+    betas (bands at S=256: the gaussian's full band, the uniform's 7)."""
+    betas = mnist_d3pm_betas()
+    if kind == "gaussian":
+        mats, one = TD._gaussian_band_mats(betas, 256, None), TD._gaussian_band_mat
+        bands = None
+    else:
+        mats, one = TD._uniform_band_mats(betas, 256, 7), TD._uniform_band_mat
+        bands = 7
+    assert mats.flags.c_contiguous
+    for t, b in enumerate(betas):
+        np.testing.assert_array_equal(mats[t], one(b, 256, bands))
+
+
+@pytest.mark.slow
+def test_mnist_d3pm_cumulative_table_bit_equal_to_jax():
+    """The full float32 (1000, 256, 256) q_mats and one-step table of
+    mnist_d3pm, bit-equal to JAX's (its build alone takes ~33 s here)."""
+    cfg = jax_get_preset("mnist_d3pm").model
+    jd = JD.make_diffusion(cfg)
+    q_onestep, q_mats = TD._host_tables(mnist_d3pm_betas().tobytes(), "gaussian", None, 256)
+    np.testing.assert_array_equal(q_onestep, np.asarray(jd.q_onestep_mats))
+    np.testing.assert_array_equal(q_mats, np.asarray(jd.q_mats))
+
+
 def test_utils_match():
     rng = np.random.RandomState(0)
     a, b = (rng.randn(B, D, S).astype(np.float32) for _ in range(2))

@@ -57,8 +57,8 @@ def digest(pool) -> str:
 
 
 def recording(seen, make_real=None):
-    """A stand-in for make_device_data_step that records the pool of every
-    step; with `make_real`, the real step runs too."""
+    """A stand-in for the loop's device-data step builder that records the
+    pool of every step; with `make_real`, the real step runs too."""
     def make(*a, **k):
         real = make_real(*a, **k) if make_real else None
 
@@ -79,7 +79,7 @@ def test_pools_match_jax(tmp_path, monkeypatch, dataset, period, n_iters, epochs
     jcfg, cfg = cfgs(tmp_path, dataset, period)
     seen = {"jax": [], "port": []}
     monkeypatch.setattr(jax_train_step, "make_device_data_step", recording(seen["jax"]))
-    monkeypatch.setattr(port_loop, "make_device_data_step", recording(seen["port"]))
+    monkeypatch.setattr(port_loop, "make_device_data_train_step", recording(seen["port"]))
     with mock.patch.object(jax_cls, "regenerate", autospec=True,
                            side_effect=jax_cls.regenerate) as jax_regen:
         jax_train(jcfg, n_iters=n_iters, seed=4, writer_kind="numpy", mesh=make_mesh(1),
@@ -102,13 +102,13 @@ def test_resume_replays_the_pools(tmp_path, monkeypatch):
     the final state."""
     _, cfg = cfgs(tmp_path, "SudokuDataset", 2)
     cfg.saving.checkpoint_freq = 10
-    real = port_loop.make_device_data_step
+    real = port_loop.make_device_data_train_step
     whole, first, second = [], [], []
-    monkeypatch.setattr(port_loop, "make_device_data_step", recording(whole, real))
+    monkeypatch.setattr(port_loop, "make_device_data_train_step", recording(whole, real))
     state, _ = train(cfg, n_iters=17, seed=4, device="cpu", log_every=1000)
-    monkeypatch.setattr(port_loop, "make_device_data_step", recording(first, real))
+    monkeypatch.setattr(port_loop, "make_device_data_train_step", recording(first, real))
     _, info = train(cfg, n_iters=10, seed=4, device="cpu", log_every=1000)
-    monkeypatch.setattr(port_loop, "make_device_data_step", recording(second, real))
+    monkeypatch.setattr(port_loop, "make_device_data_train_step", recording(second, real))
     resumed, info2 = train(cfg, n_iters=17, seed=4, device="cpu", log_every=1000,
                            resume_from=info["paths"]["checkpoints"])
     assert first + second == whole

@@ -74,3 +74,24 @@ def test_iterate_batches_match_jax(shuffle):
         (x, y), (jx, jy) = next(mine), next(theirs)
         assert np.array_equal(x, jx) and np.array_equal(y, jy)
         assert len(x) == 5
+
+
+@pytest.mark.parametrize("binmode", ["gray", "normal"])
+def test_dataset_cli_writes_jax_bytes(binmode, tmp_path):
+    """`python -m ctdd_tpu_torch.data.synthetic` writes the .npy file JAX's
+    `generate_dataset` writes for the same flags and seed, byte for byte;
+    `--plot` draws the decoded floats."""
+    import subprocess
+    import sys
+
+    J.generate_dataset("pinwheel", 3000, 32, binmode, seed=7,
+                       save_path=str(tmp_path / "jax.npy"))
+    out = subprocess.run(
+        [sys.executable, "-m", "ctdd_tpu_torch.data.synthetic", "--type", "pinwheel",
+         "--num-samples", "3000", "--binmode", binmode, "--seed", "7",
+         "--out", str(tmp_path / "port.npy"), "--plot", str(tmp_path / "plot.png")],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "3000 samples -> " in out.stdout
+    assert (tmp_path / "port.npy").read_bytes() == (tmp_path / "jax.npy").read_bytes()
+    assert (tmp_path / "plot.png").read_bytes().startswith(b"\x89PNG")

@@ -315,7 +315,7 @@ def test_host_batches_skip_the_batch_jax_spends_on_init(tmp_path, monkeypatch):
 
     monkeypatch.setattr(jax_train_step, "make_train_step", recorder("jax"))
     monkeypatch.setattr(jax_loop, "make_dp_train_step", recorder("jax"))
-    monkeypatch.setattr(port_loop, "make_train_step", recorder("port"))
+    monkeypatch.setattr(port_loop, "make_dp_train_step", recorder("port"))
     jax_train(jcfg, n_iters=3, seed=4, writer_kind="numpy", mesh=make_mesh(1))
     train(cfg, n_iters=3, seed=4, device="cpu")
     assert len(seen["jax"]) == len(seen["port"]) == 3
