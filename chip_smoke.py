@@ -24,12 +24,19 @@ Phases (any fault exits non-zero; nothing is caught):
   8. rates    reverse-rates and Euler-posterior kernels vs their plain
               versions, per-sample and shared tables, real process tables
               (S up to 256; sudoku's S=9, hollow_protein's S=21,
-              pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2) too)
+              pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2) too);
+              the posterior's draw mode (the LBJF update in one launch) vs
+              the plain draw on injected and on keyed noise (near-ties
+              apart), keyed repeatability, and its histograms at S = 2, 9,
+              129, 256 against exp(logp)
   9. timing   both kernels, plain versions and bounds at N=256 and N=16
               (and at sudoku's sampling shape N=256, D=81, S=9,
-              pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2))
+              pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2));
+              the draw mode keyed and injected beside its bound and the
+              chain it replaces (log-probs, noise, add, argmax, cast)
               (phases 8 and 9 run straight after 4)
- 10. steps    where a batch-16 LBJF step's time goes
+ 10. steps    where a batch-16 LBJF step's time goes, and its kernels per
+              step
  11. serving  three more seeded checkpoints over HTTP (no warm-up batch),
               each with its exact launch counts: the flagship with LBJF and
               a live corrector (500 steps), tauUnet_mnist_ll (MidPointTauL/500,
@@ -475,6 +482,11 @@ def phase_rate_kernels(dev) -> dict:
                 N, D, S, fracs, N * D + int(100 * fracs[0]), dev, per_sample)
             hold_rate_kernels(f"N={N} D={D} S={S} {'per-sample' if per_sample else 'shared'} "
                               f"tables at {fracs}", logits, qc, qt0, rc, x, h, worst)
+    log(f"  draw mode, injected and keyed noise: {worst['draw_differ']} of "
+        f"{worst['draw_rows']} rows differ from the plain draw, all among its "
+        f"{worst['draw_near_ties']} near-ties (top two of logp + g within "
+        f"{2 * POST_LOG_TOL:.0e})")
+    worst["draw_statistics"] = hold_draw_statistics(dev)
     return worst
 
 
@@ -506,13 +518,14 @@ def hold_rate_kernels(what, logits, qc, qt0, rc, x, h, worst):
 def hold_posterior(what, rev, x, h, worst, prefix=""):
     """The Euler-posterior kernel on the rates `rev` vs its plain version
     (tolerances in `phase_rate_kernels`), at `h` and at an h that drives
-    half the rows to diag = 0. Raises on a miss; `worst` keeps the largest
-    differences."""
+    half the rows to diag = 0, in both modes (`hold_draw`). Raises on a
+    miss; `worst` keeps the largest differences and the draw's counts."""
     from ctdd_tpu_torch.ops import rate_kernels as rk
 
     off = rev.sum(-1)
     off_x = torch.arange(rev.shape[-1], device=rev.device)[None, None, :] != x[:, :, None]
     dead_shares = []
+    draws = []
     # the sampler's own h, and one that drives half the rows to diag = 0
     for hh in (h, float(1.0 / off.median())):
         kp = rk.euler_posterior(rev, x, hh)
@@ -528,10 +541,102 @@ def hold_posterior(what, rev, x, h, worst, prefix=""):
         worst["post_prob"] = max(worst["post_prob"], prob)
         worst["post_log"] = max(worst["post_log"], logd)
         dead_shares.append((hh * off >= 1).float().mean().item())
+        draws.append(hold_draw(f"{what} h={hh:.3g}", rev, x, hh, pp, worst))
     if not dead_shares[1] > 0:
         raise AssertionError(f"euler_posterior {what}: no row with diag = 0")
     log(f"  {what}: {prefix}posterior agrees at h={h:.3g} and with diag=0 in "
-        f"{dead_shares[1]:.2f} of the rows")
+        f"{dead_shares[1]:.2f} of the rows; draw mode: " + "; ".join(draws))
+
+
+def hold_draw(what, rev, x, h, logp_plain, worst) -> str:
+    """The posterior kernel's draw mode on one input, injected and keyed.
+    Injected noise (`gumbel_noise`): equal to `euler_posterior_draw_plain`
+    on every row but those where the plain version's top two values of
+    logp + g lie within 2 * POST_LOG_TOL (the log-probs may differ by
+    POST_LOG_TOL each). Keyed: held the same way against the plain draw on
+    `philox_gumbel`, the same Philox stream made in PyTorch (its noise
+    within ~6e-6 of the kernel's, whose outer log is `__logf`); one key
+    gives the same states twice, and another seed or substep other states
+    wherever enough states move. Raises on a miss; adds the rows, near-ties and mismatches
+    to `worst`."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+    from ctdd_tpu_torch.utils.math import gumbel_noise
+
+    gen = torch.Generator(device=rev.device).manual_seed(rev.numel() % 9973)
+    key = (11 | (3 << 32), 0)
+    counts = []
+    for kind, g, got in (
+            ("injected", gumbel_noise(gen, rev.shape, rev.device), None),
+            ("keyed", rk.philox_gumbel(*key, rev.shape, rev.device),
+             rk.euler_posterior_draw(rev, x, h, seed=key[0], substep=key[1]))):
+        if got is None:
+            got = rk.euler_posterior_draw(rev, x, h, g=g)
+        torch.cuda.synchronize()
+        want = rk.euler_posterior_draw_plain(rev, x, h, g)
+        top2 = (logp_plain + g).topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 2 * POST_LOG_TOL
+        differ = got != want
+        far = int((differ & ~near).sum())
+        if far or got.dtype != torch.int32 or got.shape != x.shape:
+            raise AssertionError(f"euler_posterior draw {what}, {kind}: {far} rows differ "
+                                 f"from the plain draw away from a near-tie ({got.dtype}, "
+                                 f"{tuple(got.shape)})")
+        worst["draw_rows"] = worst.get("draw_rows", 0) + x.numel()
+        worst["draw_near_ties"] = worst.get("draw_near_ties", 0) + int(near.sum())
+        worst["draw_differ"] = worst.get("draw_differ", 0) + int(differ.sum())
+        counts.append(f"{kind} {int(differ.sum())} of {x.numel()} rows differ, "
+                      f"{int(near.sum())} near-ties")
+
+    a = rk.euler_posterior_draw(rev, x, h, seed=key[0], substep=key[1])
+    c = rk.euler_posterior_draw(rev, x, h, seed=key[0], substep=1)
+    d = rk.euler_posterior_draw(rev, x, h, seed=key[0] + 1, substep=0)
+    moved = int((a != x).sum())
+    if not torch.equal(a, got):
+        raise AssertionError(f"euler_posterior draw {what}: one key, two results")
+    if moved >= 8 and (torch.equal(a, c) or torch.equal(a, d)):
+        raise AssertionError(f"euler_posterior draw {what}: another key, the same "
+                             f"{moved} moves")
+    return "; ".join(counts) + f"; keyed repeats, {moved} moved"
+
+
+def hold_draw_statistics(dev) -> dict:
+    """The keyed draw mode's histograms against exp(logp): at S = 2, 9, 129
+    and 256, 2^16 identical rows of each of two kinds, one with diag = 0 and
+    one where staying put is likely (p_x = 0.7), drawn in one launch; every
+    entry's count within 5 binomial standard deviations of n * p. The
+    entries of p ~ 1e-35 (x in the diag = 0 row) must never be drawn."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+
+    n = 1 << 16
+    out = {}
+    for S in (2, 9, 129, 256):
+        gen = torch.Generator(device=dev).manual_seed(S)
+        r = torch.exp(torch.randn((2, S), generator=gen, device=dev))
+        x = torch.tensor([[S // 3], [S - 1]], dtype=torch.int32, device=dev)
+        r.scatter_(1, x.long(), 0.0)
+        # h = 1: the first row's rates sum to 2 (diag = 0), the second's to 0.3
+        r = r * torch.tensor([[2.0], [0.3]], device=dev) / r.sum(-1, keepdim=True)
+        rev = r[:, None, :].expand(2, n, S).contiguous()
+        xs = x.expand(2, n).contiguous()
+        draws = rk.euler_posterior_draw(rev, xs, 1.0, seed=S | (7 << 32), substep=2)
+        torch.cuda.synchronize()
+        p = rk.euler_posterior_plain(rev[:, :1], xs[:, :1], 1.0)[:, 0].exp().double()
+        counts = torch.stack([torch.bincount(draws[k].long(), minlength=S)
+                              for k in range(2)]).double()
+        sd = (n * p * (1 - p)).clamp_min(0).sqrt()
+        z = ((counts - n * p).abs() / sd.clamp_min(1e-30)).where(sd > 0,
+                                                             (counts - n * p).abs() * 1e30)
+        worst_z = z.max().item()
+        if not worst_z <= 5.0:
+            raise AssertionError(f"euler_posterior draw S={S}: a count is {worst_z:.2f} "
+                                 f"binomial standard deviations from n * p")
+        out[S] = dict(max_z=worst_z, stay_share=counts[1, S - 1].item() / n,
+                      stay_p=p[1, S - 1].item())
+        log(f"  keyed draw S={S}: 2 x {n} rows, every count within {worst_z:.2f} "
+            f"binomial sd of n * p (diag = 0 row never stays: "
+            f"{int(counts[0, S // 3].item())} draws of x; stay row {out[S]['stay_share']:.4f} "
+            f"vs p {out[S]['stay_p']:.4f})")
+    return out
 
 
 def rate_timing(N: int, D: int, S: int, dev) -> dict:
@@ -572,6 +677,90 @@ def rate_timing(N: int, D: int, S: int, dev) -> dict:
             f"{out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms'] * 1e3:.2f} us "
             f"({out[name]['bound_by']}: {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP at the {rate_name} rate)")
+    out["euler_posterior"].update(draw_timing(rev, x, h, iters))
+    return out
+
+
+def draw_timing(rev, x, h, iters: int) -> dict:
+    """The posterior kernel's draw mode at one shape: keyed (the sampler's
+    path) beside its plain version, with injected noise, and the chain it
+    replaces (`unfused`), each with its bound. Returns
+    `draw_*`, `draw_injected_*` and `unfused_*` fields."""
+    from ctdd_tpu_torch.ops import rate_kernels as rk
+    from ctdd_tpu_torch.utils.math import gumbel_noise
+
+    N, D, S = rev.shape
+    nds, nd = rev.numel(), x.numel()
+    gen = torch.Generator(device=rev.device).manual_seed(0)
+    g = gumbel_noise(gen, rev.shape, rev.device)
+
+    def injected():
+        return rk.euler_posterior_draw(rev, x, h, g=g)
+
+    def unfused():
+        """The LBJF update as the sampler launched it before the draw mode:
+        the log-prob kernel, `gumbel_noise`, the add, the argmax, the cast."""
+        logp = rk.euler_posterior(rev, x, h)
+        return torch.argmax(logp + gumbel_noise(gen, logp.shape, logp.device),
+                            dim=-1).to(torch.int32)
+
+    # the plain version of the keyed draw: its noise made in PyTorch, then
+    # the plain log-probs, the add and the argmax
+    t = timed(lambda: rk.euler_posterior_draw(rev, x, h, seed=5, substep=0),
+              lambda: rk.euler_posterior_draw_plain(
+                  rev, x, h, rk.philox_gumbel(5, 0, rev.shape, rev.device)), iters)
+    # the rates and x read once, the state written; ~13 f32 operations per
+    # entry (the posterior's 8, the noise's two logs and clamp, the add and
+    # the compare); the Philox rounds are integer work
+    nbytes = 4 * (nds + 2 * nd)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 13.0 * nds / F32_FLOP_PER_S * 1e3
+    draw = within_bound(dict(**t, bound_ms=max(bytes_ms, ops_ms),
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+    inj_bound = (nbytes + 4 * nds) / HBM_BYTES_PER_S * 1e3
+    inj_loop = cuda_ms(injected, iters)
+    inj_dev = device_ms(injected, iters)
+    unf_loop = cuda_ms(unfused, max(iters // 4, 3))
+    unf_dev = device_ms(unfused, max(iters // 4, 3))
+    # the chain's launches, counted once in a trace
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        unfused()
+        torch.cuda.synchronize()
+    chain_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = {f"draw_{k}": v for k, v in draw.items()
+           if k in ("ms", "loop_ms", "device_ms", "plain_ms", "plain_loop_ms", "bound_ms",
+                    "bound_by", "timed_by")}
+    out.update(draw_bytes=nbytes,
+               draw_injected_ms=inj_dev if inj_dev >= inj_bound else inj_loop,
+               draw_injected_loop_ms=inj_loop, draw_injected_bound_ms=inj_bound,
+               unfused_ms=unf_dev or unf_loop, unfused_loop_ms=unf_loop,
+               unfused_timed_by="device trace" if unf_dev else "events around a loop",
+               unfused_kernels=chain_kernels or None)  # None: the trace lost them
+    log(f"  euler_posterior draw N={N} D={D} S={S}: keyed {out['draw_ms']:.4f} ms by "
+        f"{out['draw_timed_by']} ({out['draw_loop_ms']:.4f} ms per turn of a loop), "
+        f"bound {out['draw_bound_ms'] * 1e3:.2f} us ({out['draw_bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB), {out['draw_ms'] / out['draw_bound_ms']:.2f}x bound; "
+        f"injected g {out['draw_injected_ms']:.4f} ms (bound "
+        f"{inj_bound * 1e3:.2f} us); plain draw {out['draw_plain_ms']:.4f} ms; the "
+        f"chain it replaces {out['unfused_ms']:.4f} ms by {out['unfused_timed_by']} "
+        f"({unf_loop:.4f} ms per turn of a loop, "
+        + (f"{chain_kernels} kernels)" if chain_kernels else "kernels not traced)"))
+    return out
+
+
+def draw_first(t: dict) -> dict:
+    """The posterior's timings at one shape (`rate_timing`'s entry) with
+    the draw mode keyed, the sampler's path, in the headline fields and
+    the log-prob mode's under `logprob_*`; the injected-noise draw and the
+    replaced chain keep their `draw_injected_*` and `unfused_*` fields."""
+    out = {"shape": t["shape"]}
+    for field in ("ms", "loop_ms", "device_ms", "plain_ms", "plain_loop_ms", "bound_ms",
+                  "bound_by", "timed_by", "bytes"):
+        out[field], out[f"logprob_{field}"] = t[f"draw_{field}"], t[field]
+    out.update({f: v for f, v in t.items() if f.startswith(("draw_injected_", "unfused_"))})
     return out
 
 
@@ -726,14 +915,16 @@ def phase_step_breakdown(dev, cfg, kernel_names, steps: int = 20) -> dict:
            for label, part in kernel_names.items()}
     if busy_ms and not all(own.values()):
         raise AssertionError(f"a kernel of the step is missing from the trace: {own}")
+    own_launches = {label: sum(e.count for e in kernels if part in e.key) / steps
+                    for label, part in kernel_names.items()}
     out = dict(sampler=cfg.sampler.name, step_ms=step_ms, unet_ms=unet_ms,
-               device_busy_ms=busy_ms, **own,
+               device_busy_ms=busy_ms, **own, launches_per_step=own_launches,
                idle_share=1.0 - busy_ms / step_ms if busy_ms else None,
                device_kernels_per_step=sum(e.count for e in kernels) / steps)
     log(f"  {cfg.sampler.name} step at batch 16: {step_ms:.3f} ms wall; UNet "
         f"forward {unet_ms:.3f} ms (events); device busy {busy_ms:.3f} ms ("
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in own.items()) + ") over "
-        f"{out['device_kernels_per_step']:.0f} kernels; idle share "
+        + ", ".join(f"{k} {v:.3f} ms, {own_launches[k]:g} a step" for k, v in own.items())
+        + f") over {out['device_kernels_per_step']:.0f} kernels per step; idle share "
         + (f"{out['idle_share']:.3f}" if busy_ms else "not measured"))
     return out
 
@@ -4193,7 +4384,10 @@ def main() -> int:
             "serving_step_device_ms": in_step[name], **extra,
         }
 
-    rr, ep = rate_timing["reverse_rates"], rate_timing["euler_posterior"]
+    rr = rate_timing["reverse_rates"]
+    # the posterior's headline fields are its draw mode's, the sampler's
+    # path; its log-prob mode's sit under `logprob_*`
+    ep = {key: draw_first(t) for key, t in rate_timing["euler_posterior"].items()}
 
     def shapes(timings):
         """The named shapes' times (sudoku's, pianoroll_cond's, the EBM's)."""
@@ -4203,7 +4397,15 @@ def main() -> int:
                                    ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
                                    ("bound_by", "bound_by"))}
 
-    s9 = slice9["kernels"]["timing"]
+    s9 = dict(slice9["kernels"]["timing"])
+    s9["euler_posterior"] = {key: draw_first(t) for key, t in s9["euler_posterior"].items()}
+
+    def mode_fields(timings, keys):
+        """The posterior's log-prob mode, injected-noise draw and replaced
+        chain fields, per shape."""
+        return {f"{prefix}{field}": t[field]
+                for key, prefix in keys for t in [timings[key]]
+                for field in t if field.startswith(("logprob_", "draw_", "unfused_"))}
 
     def slice9_shapes(name):
         """This kernel's times at slice 9's shapes (CIFAR10's D=3072 at
@@ -4232,7 +4434,14 @@ def main() -> int:
               ep[256], ep[16], max_log_err=max(rate_err["post_log"],
                                                slice9["kernels"]["worst"]["post_log"]),
               **shapes(ep), **{k: v for k, v in slice9_shapes("euler_posterior").items()
-                               if k.startswith("binmnist")}),
+                               if k.startswith("binmnist")},
+              **mode_fields(ep, ((256, ""), (16, "serving_"), ("sudoku", "sudoku_"),
+                                 ("pianoroll", "pianoroll_"), ("ebm", "ebm_"))),
+              **mode_fields(s9["euler_posterior"], (("binmnist", "binmnist_"),)),
+              draw_near_ties=rate_err["draw_near_ties"], draw_rows=rate_err["draw_rows"],
+              draw_differ=rate_err["draw_differ"],
+              draw_statistics_max_z=max(v["max_z"]
+                                        for v in rate_err["draw_statistics"].values())),
     ]}
     for k in record["kernels"]:
         if k["launches"] <= 0:
@@ -4264,7 +4473,13 @@ def main() -> int:
             f"plain {k['serving_plain_ms']:.4f} ms, bound "
             f"{k['serving_bound_ms'] * 1e3:.1f} us ({k['serving_bound_by']}) at N=16, "
             f"{k['serving_step_device_ms']:.4f} ms of device time inside a step; "
-            f"times by {k['timed_by']}")
+            f"times by {k['timed_by']}"
+            + (f"; these are the draw mode's; the log-prob mode {k['logprob_ms']:.4f} ms "
+               f"(bound {k['logprob_bound_ms'] * 1e3:.1f} us) and the chain the draw "
+               f"replaced {k['unfused_ms']:.4f} ms at N=256, {k['serving_logprob_ms']:.4f} ms "
+               f"(bound {k['serving_logprob_bound_ms'] * 1e3:.1f} us) and "
+               f"{k['serving_unfused_ms']:.4f} ms at N=16"
+               if "logprob_ms" in k else ""))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps(record))

@@ -10,8 +10,9 @@ eager Python loop over the same float32 grid.
   the fused tau-leap kernel (ops/fused_update.py); otherwise reverse rates
   (ops/rate_kernels.py) and Poisson jumps. TAULStepSize is unfused TauL that
   also returns per-step traces of the jump proposals.
-- LBJF: reverse rates, then the Euler posterior (both ops/rate_kernels.py)
-  and a Gumbel-max categorical draw.
+- LBJF: reverse rates, then the Euler posterior and its Gumbel-max
+  categorical draw (both ops/rate_kernels.py); on the card the posterior
+  and the draw are one launch of the posterior kernel's draw mode.
 - The reverse rates come from the p0t formula (the tauLDR losses) through
   the reverse-rates kernel, or from the network's log-probability ratios
   (the SDDM/CRM/EBM losses, `rate_param="ratio"`) in plain torch; the Euler
@@ -37,8 +38,11 @@ eager Python loop over the same float32 grid.
 
 Randomness comes from an explicit `torch.Generator` on the model's device:
 it draws x_T, the uniforms and Gumbel noise of the unfused updates and, once
-per batch, the base word of the fused kernel's Philox key (the second word
-is the step index).
+per batch, the base word of the in-kernel Philox keys (the second word is
+the step index): the fused tau-leap kernel's, and on the card the LBJF
+draw's, whose substep word is 0 for a step's predictor and k + 1 for its
+k-th corrector step. On the CPU the LBJF draw takes its Gumbel noise from
+the generator.
 """
 
 from __future__ import annotations
@@ -199,14 +203,31 @@ def _poisson_jump_update(generator, x, rates, h, S, is_ordinal: bool,
     return x_new
 
 
-def _categorical_euler_update(generator, x, rev_rates, h, g=None):
-    """LBJF / Euler categorical step: the Euler posterior's log-probs, then
-    a Gumbel-max draw argmax(logp + g); `g` (N, D, S) may be injected, else
-    it is drawn from `generator`."""
-    logp = rate_kernels.euler_posterior(rev_rates, x, h)
+def _categorical_euler_update(generator, x, rev_rates, h, g=None, *, seed=None,
+                              substep: int = 0):
+    """LBJF / Euler categorical step argmax(logp + g) of the Euler posterior's
+    log-probs, through `rate_kernels.euler_posterior_draw`, with `g` (N, D, S)
+    injected, or else on the CPU drawn from `generator`, and off the CPU
+    made in the kernel (one launch of its draw mode) from its Philox stream
+    keyed by (`seed`, `substep`); without a `seed` the key is drawn from
+    `generator` (one host read)."""
     if g is None:
-        g = gumbel_noise(generator, logp.shape, logp.device)
-    return torch.argmax(logp + g, dim=-1).to(torch.int32)
+        if rev_rates.device.type == "cpu":
+            g = gumbel_noise(generator, rev_rates.shape, rev_rates.device)
+        elif seed is None:
+            seed = _batch_key(generator, rev_rates.device)
+    return rate_kernels.euler_posterior_draw(rev_rates, x, h, seed=seed or 0,
+                                             substep=substep, g=g)
+
+
+def _batch_key(generator, device) -> int:
+    """The base word of a batch's Philox keys, drawn on the generator's
+    device: one draw (and one host read) per batch; step i keys its draws
+    with base | (i << 32)."""
+    if generator is not None:
+        device = generator.device
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=device).item())
 
 
 def _time_grid(max_t: float, min_t: float, num_steps: int):
@@ -246,6 +267,10 @@ def bind_label(model, label, cfg_scale: float, S: int):
 
 class _SamplerBase:
     """Common config unpack shared by the registered samplers."""
+
+    # the LBJF samplers: their steps and corrector steps take the batch's
+    # Philox key (seed, substep) for the draw
+    keyed_draw = False
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -365,9 +390,7 @@ class _SamplerBase:
             self.initial_dist_std, device=device,
         )
         ts, hs = self.time_grid()
-        # one draw per batch; the fused kernel's key is (base, step)
-        base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=device).item())
+        base = _batch_key(generator, device)
         # float32 on both sides, as the JAX scan compares them
         entry = np.float32(self.corrector_entry_time)
         traces = []
@@ -377,9 +400,11 @@ class _SamplerBase:
                               seed=base | (i << 32))
             traces.append(torch.sum(x != x_new) / self._changes_per(N))
             if self.num_corrector_steps > 0 and ts[i] <= entry:
-                for _ in range(self.num_corrector_steps):
+                for k in range(self.num_corrector_steps):
+                    key = (dict(seed=base | (i << 32), substep=k + 1)
+                           if self.keyed_draw else {})
                     x_new = self.corrector_step(model, params, x_new, t, h,
-                                                generator=generator)
+                                                generator=generator, **key)
             x = x_new
         if self._denoises():
             x = _denoise_argmax(model, params, x, self.min_t, N)
@@ -471,18 +496,23 @@ class TAULStepSize(TauL):
 
 @registry.samplers.register
 class LBJF(_SamplerBase):
+    keyed_draw = True
+
     def step(self, model, params, x, t: float, h: float, *, generator=None,
-             seed: int = 0, g=None):
-        """One Euler step: reverse rates, posterior, categorical draw.
-        `g` (N, D, S) injects the Gumbel noise."""
+             seed=None, g=None):
+        """One Euler step: reverse rates, posterior, categorical draw keyed
+        by (`seed`, substep 0) on the card. `g` (N, D, S) injects the Gumbel
+        noise."""
         rev = self._rev_rates(model, params, x, t)
-        return _categorical_euler_update(generator, x, rev, h, g=g)
+        return _categorical_euler_update(generator, x, rev, h, g=g, seed=seed)
 
     def corrector_step(self, model, params, x, t: float, h: float, *,
-                       generator=None, g=None):
-        """One corrector step: an Euler step at the corrector rates."""
+                       generator=None, seed=None, substep: int = 1, g=None):
+        """One corrector step: an Euler step at the corrector rates, its
+        draw keyed by (`seed`, `substep`) on the card."""
         corrector = self._corrector_rates(model, params, x, t)
-        return _categorical_euler_update(generator, x, corrector, h, g=g)
+        return _categorical_euler_update(generator, x, corrector, h, g=g, seed=seed,
+                                         substep=substep)
 
 
 # ---------------------------------------------------------------------------
@@ -725,11 +755,13 @@ class _ConditionalBase(_SamplerBase):
         x = get_initial_samples(generator, N, self.sample_D, self.S, self.initial_dist,
                                 self.initial_dist_std, device=model.device)
         ts, hs = self.time_grid()
+        base = _batch_key(generator, model.device) if self.keyed_draw else 0
         entry = np.float32(self.corrector_entry_time)
         for i in range(len(ts)):
             t, h = float(ts[i]), float(hs[i])
             cond = self._step_conditioner(model, generator, conditioner, t)
-            x = self.step(model, params, cond, x, t, h, generator=generator)
+            key = dict(seed=base | (i << 32)) if self.keyed_draw else {}
+            x = self.step(model, params, cond, x, t, h, generator=generator, **key)
             if self.num_corrector_steps > 0 and ts[i] <= entry:
                 for _ in range(self.num_corrector_steps):
                     x = self.corrector_step(model, params, conditioner, x, t, h,
@@ -785,14 +817,16 @@ class ConditionalLBJF(_ConditionalBase):
     rates through the reverse-rates kernel, the posterior through the Euler
     posterior kernel, a Gumbel-max draw."""
 
+    keyed_draw = True
+
     def __init__(self, cfg):
         super().__init__(cfg)
         self.num_corrector_steps = 0
 
     def step(self, model, params, conditioner, x, t: float, h: float, *,
-             generator=None, g=None):
+             generator=None, seed=None, g=None):
         _, rev = self._cond_rates(model, params, conditioner, x, t)
-        return _categorical_euler_update(generator, x, rev, h, g=g)
+        return _categorical_euler_update(generator, x, rev, h, g=g, seed=seed)
 
 
 for _alias, _target in (
@@ -803,12 +837,13 @@ for _alias, _target in (
 
 
 def lbjf_corrector_step(cfg, model, params, generator, xt, t: float, h: float, N: int,
-                        xt_target=None, g=None):
+                        xt_target=None, g=None, seed=None):
     """One standalone LBJF corrector step: the Euler posterior of the
     corrector rates ratio·R(x_t, ·) + R(x_t, ·) (the ratio of the network's
-    log-probs at x_t), one-hot at `xt_target` (x_t by default), through the
-    posterior kernel, and a Gumbel-max draw; `g` (N, D, S) injects the
-    noise."""
+    log-probs at x_t), one-hot at `xt_target` (x_t by default), and a
+    Gumbel-max draw, through the posterior kernel's draw mode; `g` (N, D, S)
+    injects the noise, else on the CPU `generator` draws it and on the card
+    `seed` (by default one drawn from `generator`) keys it, substep 0."""
     if xt_target is None:
         xt_target = xt
     t_ones = torch.full((N,), t, dtype=torch.float32, device=xt.device)
@@ -817,4 +852,4 @@ def lbjf_corrector_step(cfg, model, params, generator, xt, t: float, h: float, N
                                         model.process, xt, t_ones, logits)
     fwd_rate = model.rate_mat(xt, t_ones)
     rev = torch.exp(ll_all - ll_xt[..., None]) * fwd_rate + fwd_rate
-    return _categorical_euler_update(generator, xt_target, rev, h, g=g)
+    return _categorical_euler_update(generator, xt_target, rev, h, g=g, seed=seed)

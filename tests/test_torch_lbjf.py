@@ -292,3 +292,95 @@ def test_lbjf_aliases_and_gumbel_noise():
     # Gumbel(0, 1): mean = Euler's constant, variance = pi^2 / 6
     assert abs(g.mean().item() - 0.5772) < 0.01
     assert abs(g.var().item() - np.pi ** 2 / 6) < 0.03
+
+
+def test_lbjf_hands_the_draw_a_distinct_key_at_every_call(monkeypatch):
+    """One batch of LBJF with two corrector steps below the entry time: the
+    draw (a stand-in around `rate_kernels.euler_posterior_draw`) gets the
+    batch's base word and the step index as its seed, substep 0 for the
+    predictor and k + 1 for the k-th corrector step: a distinct (seed,
+    substep) at every call. ConditionalLBJF keys its steps the same way, and
+    `lbjf_corrector_step` passes its `seed` on."""
+    from ctdd_tpu_torch.ops import rate_kernels
+
+    calls = []
+    real = rate_kernels.euler_posterior_draw
+
+    def stand_in(rev, x, h, *, seed=0, substep=0, g=None):
+        calls.append((seed, substep))
+        return real(rev, x, h, seed=seed, substep=substep, g=g)
+
+    monkeypatch.setattr(rate_kernels, "euler_posterior_draw", stand_in)
+    steps = 6
+    cfg, tcfg = _cfgs("flagship", "LBJF", num_steps=steps, model_kw=MILD,
+                      num_corrector_steps=2)
+    pts, _ = ts._time_grid(1.0, tcfg.sampler.min_t, steps)
+    tcfg.sampler.corrector_entry_time = float(pts[3])
+    _, _, tmodel = _models(cfg, tcfg)
+    sampler = ts.get_sampler(tcfg)
+    samples, _ = sampler.sample(tmodel, tmodel.net, torch.Generator().manual_seed(0), 2)
+    assert samples.shape == (2, cfg.model.concat_dim)
+    live = int((pts <= np.float32(pts[3])).sum())
+    assert live == 3 and len(calls) == steps + 2 * live
+    assert len(set(calls)) == len(calls)  # every draw its own key
+    base = calls[0][0] & 0xFFFFFFFF
+    want = []
+    for i in range(steps):
+        want.append((base | (i << 32), 0))
+        if i >= steps - live:
+            want += [(base | (i << 32), 1), (base | (i << 32), 2)]
+    assert calls == want
+
+    # the conditional loop: one base per batch, step i keyed by (base, i)
+    from test_torch_conditional import N as CN, P, pair
+
+    _, ccfg, _, _, cmodel = pair()
+    ccfg.sampler.name = "ConditionalLBJF"
+    calls.clear()
+    cond = np.zeros((CN, P), np.int64)
+    ts.get_sampler(ccfg).sample(cmodel, cmodel.net, torch.Generator().manual_seed(1), CN,
+                                conditioner=cond)
+    cbase = calls[0][0] & 0xFFFFFFFF
+    assert calls == [(cbase | (i << 32), 0) for i in range(ccfg.sampler.num_steps)]
+
+    calls.clear()
+    xt = torch.zeros((2, cfg.model.concat_dim), dtype=torch.int32)
+    ts.lbjf_corrector_step(tcfg, tmodel, tmodel.net, torch.Generator(), xt, 0.4, 0.05, 2,
+                           seed=123 | (7 << 32))
+    assert calls == [(123 | (7 << 32), 0)]
+
+
+def test_lbjf_draw_without_a_seed_keys_it_from_the_generator(monkeypatch):
+    """Off the CPU (here `meta` tensors and a stand-in for the draw) a draw
+    given no seed takes its key from `generator`: two calls, two keys, the
+    same again after reseeding; a given seed is passed on and leaves the
+    generator alone. LBJF's step and corrector step, ConditionalLBJF's step
+    and `lbjf_corrector_step` take no seed by default."""
+    import inspect
+
+    from ctdd_tpu_torch.ops import rate_kernels
+
+    calls = []
+
+    def stand_in(rev, x, h, *, seed=0, substep=0, g=None):
+        calls.append((seed, substep, g))
+        return x
+
+    monkeypatch.setattr(rate_kernels, "euler_posterior_draw", stand_in)
+    rev = torch.empty((2, 3, 4), device="meta")
+    x = torch.empty((2, 3), dtype=torch.int32, device="meta")
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        ts._categorical_euler_update(gen, x, rev, 0.1)
+    gen.manual_seed(0)
+    ts._categorical_euler_update(gen, x, rev, 0.1)
+    (a, sa, ga), (b, sb, gb), (c, _, _) = calls
+    assert ga is None and gb is None and sa == sb == 0
+    assert a != b and a == c
+    state = gen.get_state()
+    ts._categorical_euler_update(gen, x, rev, 0.1, seed=7 | (1 << 32), substep=2)
+    assert calls[-1][:2] == (7 | (1 << 32), 2)
+    assert torch.equal(gen.get_state(), state)
+    for fn in (ts.LBJF.step, ts.LBJF.corrector_step, ts.ConditionalLBJF.step,
+               ts.lbjf_corrector_step):
+        assert inspect.signature(fn).parameters["seed"].default is None

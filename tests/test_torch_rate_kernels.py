@@ -5,6 +5,9 @@ Pallas kernels in interpret mode, on the same numpy-seeded inputs. Both sides
 are float32 with sums in another order: reverse rates within 1e-5 of each
 row's largest |value| (a row sums S non-negative terms), log-posteriors
 within atol 1e-5 (the tolerance the JAX package's own kernel tests use).
+The LBJF draw (`euler_posterior_draw`, the posterior kernel's draw mode) is
+held to a numpy argmax of JAX's log-posterior plus the same numpy Gumbel
+noise: states equal.
 """
 
 import jax.numpy as jnp
@@ -177,6 +180,105 @@ def test_wrappers_refuse_other_devices():
         rk.reverse_rates(meta, meta, meta, meta, meta)
     with pytest.raises(ValueError, match="cpu or cuda"):
         rk.euler_posterior(meta, meta, 0.1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rk.euler_posterior_draw(meta, meta, 0.1)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("S", [8, 3, 2])
+@pytest.mark.parametrize("h", [0.013, 40.0])
+def test_euler_posterior_draw_plain_matches_jax(ref, S, h):
+    """The draw with injected noise: argmax(JAX's log-posterior + g) in
+    numpy, g numpy Gumbel draws. h = 40 gives nearly every row diag = 0
+    (every row at S = 8), and no such row stays at x."""
+    arrays = _inputs(S=S, seed=4)
+    rev = np.array(pk.reverse_rates_xla(*_j(arrays)))
+    x = arrays[4]
+    if ref == "xla":
+        logp = pk.euler_posterior_xla(jnp.asarray(rev), jnp.asarray(x), h)
+    else:
+        logp = pk.euler_posterior_pallas(jnp.asarray(rev), jnp.asarray(x), h,
+                                         tile_d=64, interpret=True)
+    g = np.random.default_rng(S).gumbel(size=rev.shape).astype(np.float32)
+    want = np.argmax(np.asarray(logp) + g, axis=-1)
+    trev, tx, tg = torch.from_numpy(rev), torch.from_numpy(x), torch.from_numpy(g)
+    got = rk.euler_posterior_draw(trev, tx, h, g=tg)
+    assert got.dtype == torch.int32 and got.shape == tx.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(rk.euler_posterior_draw_plain(trev, tx, h, tg).numpy(), want)
+    dead = h * rev.sum(-1) >= 1  # diag = 0: x has probability ~1e-35
+    assert np.all(want[dead] != x[dead])
+    moved = np.mean(want != x)
+    assert dead.mean() > 0.9 if h > 1 else 0.0 < moved < 0.5, (dead.mean(), moved)
+    assert rk.euler_posterior.launches == 0  # no kernel on CPU tensors
+
+
+def test_euler_posterior_draw_keyed_on_the_cpu():
+    """On CPU tensors a keyed draw (no `g`) is refused: the CPU's LBJF
+    takes its noise from the generator. The plain draw on the kernel's own
+    stream, `philox_gumbel(seed, substep)`: one key repeats, another seed
+    or substep differs."""
+    arrays = _inputs(S=8, seed=6)
+    rev = torch.from_numpy(np.array(pk.reverse_rates_xla(*_j(arrays))))
+    x = torch.from_numpy(arrays[4])
+    with pytest.raises(ValueError, match="needs the noise g"):
+        rk.euler_posterior_draw(rev, x, 40.0, seed=5, substep=0)
+
+    def draw(seed, substep):
+        return rk.euler_posterior_draw(rev, x, 40.0,
+                                       g=rk.philox_gumbel(seed, substep, rev.shape, "cpu"))
+
+    a = draw(5 | (2 << 32), 0)
+    assert torch.equal(a, draw(5 | (2 << 32), 0))
+    for other in (draw(5 | (2 << 32), 1), draw(5 | (3 << 32), 0), draw(6 | (2 << 32), 0)):
+        assert not torch.equal(a, other)
+    assert rk.euler_posterior.launches == 0
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_matches_the_known_answers(counter, key, want):
+    """The PyTorch Philox4x32-10 of the draw's noise: the known-answer
+    vectors of Random123 (Salmon et al., SC'11)."""
+    words = rk.philox4x32_10(*[torch.tensor([c], dtype=torch.int64) for c in counter], *key)
+    assert tuple(int(w) for w in words) == want
+
+
+def test_philox_gumbel_layout_and_law():
+    """Entry (row, s) takes word s % 4 of the block at counter (row, s // 4,
+    substep, row >> 32); the values follow Gumbel(0, 1)."""
+    seed, substep = 9 | (4 << 32), 3
+    g = rk.philox_gumbel(seed, substep, (2, 3, 7), "cpu")
+    assert g.shape == (2, 3, 7) and g.dtype == torch.float32
+    row, s = 4, 5
+    words = rk.philox4x32_10(*[torch.tensor([v], dtype=torch.int64)
+                               for v in (row, s // 4, substep, 0)], 9, 4)
+    u = np.float32(int(words[s % 4]) >> 8) * np.float32(2.0 ** -24)
+    assert abs(float(g[1, 1, s]) - float(-np.log(-np.log(u)))) < 1e-5
+    big = rk.philox_gumbel(1, 0, (4, 1000, 50), "cpu")
+    assert torch.isfinite(big).all()
+    assert abs(big.mean().item() - 0.5772) < 0.01
+    assert abs(big.var().item() - np.pi ** 2 / 6) < 0.03
+
+
+@pytest.mark.parametrize("case", ["rev_float64", "x_int64", "g_float64", "g_shape",
+                                  "S_1", "S_257", "substep"])
+def test_euler_posterior_draw_refuses_bad_inputs(case):
+    S = {"S_1": 1, "S_257": 257}.get(case, 4)
+    rev = torch.rand((2, 3, S), dtype=torch.float64 if case == "rev_float64" else torch.float32)
+    x = torch.zeros((2, 3), dtype=torch.int64 if case == "x_int64" else torch.int32)
+    g = torch.zeros((2, 3, S))
+    if case == "g_float64":
+        g = torch.zeros((2, 3, S), dtype=torch.float64)
+    elif case == "g_shape":
+        g = torch.zeros((2, 3, S + 1))
+    with pytest.raises((TypeError, ValueError)):
+        rk.euler_posterior_draw(rev, x, 0.1, g=g, substep=2**32 if case == "substep" else 0)
 
 
 @pytest.mark.cuda
@@ -195,3 +297,24 @@ def test_kernels_match_plain_on_the_card():
     logp = rk.euler_posterior(got, x, 0.013)
     torch.testing.assert_close(logp, rk.euler_posterior_plain(want, x, 0.013),
                                rtol=0, atol=5e-5)
+    # the draw mode on injected noise: the plain draw on the same rates,
+    # but where the plain version's top two values of logp + g lie within
+    # 2 * 5e-5 (the log-probs may differ by 5e-5 each)
+    for h in (0.013, 40.0):
+        g = torch.from_numpy(np.random.default_rng(7).gumbel(
+            size=tuple(got.shape)).astype(np.float32)).cuda()
+        drawn = rk.euler_posterior_draw(got, x, h, g=g)
+        plain = rk.euler_posterior_draw_plain(got, x, h, g)
+        top2 = (rk.euler_posterior_plain(got, x, h) + g).topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 1e-4
+        assert drawn.dtype == torch.int32
+        assert not bool(((drawn != plain) & ~near).any())
+        # keyed: against the plain draw on the same Philox stream made in
+        # PyTorch (its logs may differ from the kernel's by a few ulps)
+        keyed = rk.euler_posterior_draw(got, x, h, seed=3, substep=1)
+        assert torch.equal(keyed, rk.euler_posterior_draw(got, x, h, seed=3, substep=1))
+        pg = rk.philox_gumbel(3, 1, tuple(got.shape), got.device)
+        top2 = (rk.euler_posterior_plain(got, x, h) + pg).topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 1e-4
+        plain = rk.euler_posterior_draw_plain(got, x, h, pg)
+        assert not bool(((keyed != plain) & ~near).any())
