@@ -25,6 +25,7 @@ import torch.nn as nn
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops.forward_process import ForwardProcess, build_process
 from ctdd_tpu_torch.utils.device import resolve_device
+from ctdd_tpu_torch.utils.trace import NETWORK, span
 
 
 @dataclasses.dataclass
@@ -58,19 +59,21 @@ class DiffusionModel:
         network with an auxiliary head (the SequenceTransformer's key head)
         for (logits, aux); only losses pass it. A label-conditional network
         takes `label` (else the bound one) and `generator`, which draws
-        its training label drop mask; other networks get neither."""
+        its training label drop mask; other networks get neither. Runs
+        inside the `ctdd.network` span."""
         if label is None and self.bound_label is not None:
             label = self.bound_label
         kwargs = {"return_aux": True} if return_aux else {}
-        if self.has_label and label is not None:
-            kwargs["generator"] = generator
-            if self.cfg_scale > 0.0:
-                cond = self._forward(params, x, t, train, dict(kwargs, label=label))
-                null = torch.full_like(label, self.null_label)
-                uncond = self._forward(params, x, t, train, dict(kwargs, label=null))
-                return uncond + self.cfg_scale * (cond - uncond)
-            kwargs["label"] = label
-        return self._forward(params, x, t, train, kwargs)
+        with span(NETWORK):
+            if self.has_label and label is not None:
+                kwargs["generator"] = generator
+                if self.cfg_scale > 0.0:
+                    cond = self._forward(params, x, t, train, dict(kwargs, label=label))
+                    null = torch.full_like(label, self.null_label)
+                    uncond = self._forward(params, x, t, train, dict(kwargs, label=null))
+                    return uncond + self.cfg_scale * (cond - uncond)
+                kwargs["label"] = label
+            return self._forward(params, x, t, train, kwargs)
 
     def _forward(self, params, x, t, train: bool, kwargs: dict):
         net = params if isinstance(params, nn.Module) else self.net

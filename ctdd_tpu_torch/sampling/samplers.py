@@ -58,6 +58,7 @@ from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
 from ctdd_tpu_torch.ops.logprob import log_prob_from_logits, logprob_with_logits
 from ctdd_tpu_torch.utils.device import resolve_device
 from ctdd_tpu_torch.utils.math import categorical, gumbel_noise, safe_log
+from ctdd_tpu_torch.utils.trace import SAMPLE_DENOISE, SAMPLE_STEP, SAMPLE_TABLES, span
 
 TAULDR_LOSSES = ("CTElbo", "NLL", "CTElboLambda", "NLLOriginal")
 
@@ -129,8 +130,9 @@ def reverse_rates(
 def _shared_mats(process, t: float):
     """(S, S) transition and rate at one shared timestep."""
     # a device-side fill: a host-to-device copy would wait for the device
-    t1 = torch.full((1,), t, dtype=torch.float32, device=process.device)
-    return process.transition(t1)[0], process.rate(t1)[0]
+    with span(SAMPLE_TABLES):
+        t1 = torch.full((1,), t, dtype=torch.float32, device=process.device)
+        return process.transition(t1)[0], process.rate(t1)[0]
 
 
 def _ratio_rates_shared(qt0, rate, logits, x, logit_type: str):
@@ -246,9 +248,10 @@ def _pc_time_grid(min_t: float, num_steps: int):
 
 def _denoise_argmax(model, params, x, min_t, N):
     """Final argmax denoise p_{0|min_t}."""
-    t_ones = torch.full((N,), min_t, dtype=torch.float32, device=x.device)
-    p = torch.softmax(model.apply(params, x, t_ones), dim=-1)
-    return torch.argmax(p, dim=-1).to(torch.int32)
+    with span(SAMPLE_DENOISE):
+        t_ones = torch.full((N,), min_t, dtype=torch.float32, device=x.device)
+        p = torch.softmax(model.apply(params, x, t_ones), dim=-1)
+        return torch.argmax(p, dim=-1).to(torch.int32)
 
 
 def bind_label(model, label, cfg_scale: float, S: int):
@@ -396,15 +399,17 @@ class _SamplerBase:
         traces = []
         for i in range(len(ts)):
             t, h = float(ts[i]), float(hs[i])
-            x_new = self.step(model, params, x, t, h, generator=generator,
-                              seed=base | (i << 32))
+            with span(SAMPLE_STEP):
+                x_new = self.step(model, params, x, t, h, generator=generator,
+                                  seed=base | (i << 32))
             traces.append(torch.sum(x != x_new) / self._changes_per(N))
             if self.num_corrector_steps > 0 and ts[i] <= entry:
                 for k in range(self.num_corrector_steps):
                     key = (dict(seed=base | (i << 32), substep=k + 1)
                            if self.keyed_draw else {})
-                    x_new = self.corrector_step(model, params, x_new, t, h,
-                                                generator=generator, **key)
+                    with span(SAMPLE_STEP):
+                        x_new = self.corrector_step(model, params, x_new, t, h,
+                                                    generator=generator, **key)
             x = x_new
         if self._denoises():
             x = _denoise_argmax(model, params, x, self.min_t, N)

@@ -11,6 +11,13 @@ Runs on the GPU unless `--device cpu` is given, and never falls back.
 Checkpoints land in <save_location>/<date>/<experiment>_<time>/checkpoints/
 as <step>.pt files that `python -m ctdd_tpu_torch.serve --ckpt` serves.
 
+`--profile-steps START,END` traces steps START through END (counted from 0)
+with torch.profiler and writes a Chrome trace to <run>/profile/trace.json:
+the device's kernels beside the host's ops and the port's named spans
+(`ctdd.network`, `ctdd.train.*`, `ctdd.data.pool_wait`;
+`ctdd_tpu_torch/utils/trace.py` lists them). Open it in Perfetto or
+chrome://tracing.
+
 Data-parallel: under torchrun (which sets WORLD_SIZE and RANK) each process
 joins the process group from that environment (NCCL on cards, gloo with
 `--device cpu`) and trains one rank, one card a process:
@@ -21,6 +28,17 @@ from __future__ import annotations
 
 import argparse
 import os
+
+
+def _step_range(text: str) -> tuple:
+    """"START,END" -> (START, END), 0 <= START <= END."""
+    try:
+        start, end = (int(v) for v in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected START,END, got {text!r}") from None
+    if not 0 <= start <= end:
+        raise argparse.ArgumentTypeError(f"expected 0 <= START <= END, got {text!r}")
+    return start, end
 
 
 def main(argv=None):
@@ -37,6 +55,8 @@ def main(argv=None):
     ap.add_argument("--writer", default="numpy", choices=("numpy", "tensorboard", "none"))
     ap.add_argument("--set", nargs="*", default=None, help="key=value overrides")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile-steps", type=_step_range, default=None, metavar="START,END",
+                    help="trace steps START..END (inclusive) into <run>/profile/trace.json")
     args = ap.parse_args(argv)
 
     from ctdd_tpu_torch.config.presets import apply_overrides, get_preset, parse_overrides
@@ -57,7 +77,7 @@ def main(argv=None):
             print(f"auto-resume: {args.resume}")
     state, info = train(cfg, n_iters=args.iters, seed=args.seed,
                         resume_from=args.resume, writer_kind=args.writer,
-                        mesh=mesh, device=args.device)
+                        mesh=mesh, device=args.device, profile_steps=args.profile_steps)
     if mesh is None or mesh.rank == 0:
         print(f"done: step={state.step} steps/sec={info['steps_per_sec']:.3f} "
               f"run={info['paths']['root']}")

@@ -61,6 +61,7 @@ from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
 from ctdd_tpu_torch.utils import bookkeeping, png
 from ctdd_tpu_torch.utils.device import deterministic_training
+from ctdd_tpu_torch.utils.trace import DATA_POOL_WAIT, span
 
 
 def _refuse_unported(model):
@@ -114,7 +115,8 @@ class PoolStream:
     def build(self, it: int) -> torch.Tensor:
         """The pool of step `it`, generated now."""
         t0 = time.perf_counter()
-        flat = self._host_pool(it)
+        with span(DATA_POOL_WAIT):
+            flat = self._host_pool(it)
         return self._to_device(it, flat, time.perf_counter() - t0)
 
     def prefetch(self, it: int):
@@ -133,7 +135,8 @@ class PoolStream:
     def collect(self, it: int) -> torch.Tensor:
         """The pool `prefetch(it)` generates, waiting for its thread."""
         t0 = time.perf_counter()
-        self.join()
+        with span(DATA_POOL_WAIT):
+            self.join()
         waited = time.perf_counter() - t0
         if "error" in self._box:
             raise self._box["error"]

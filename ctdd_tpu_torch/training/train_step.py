@@ -22,6 +22,8 @@ import torch
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.training.state import TrainState
+from ctdd_tpu_torch.utils.trace import (TRAIN_BACKWARD, TRAIN_DRAW, TRAIN_LOSS,
+                                        TRAIN_LOSS_READ, TRAIN_REDUCE, TRAIN_UPDATE, span)
 
 NAN_SENTINEL = 1e9  # reference training.py:24
 
@@ -44,9 +46,11 @@ def value_and_grad(fn: Callable, params: Dict[str, torch.Tensor]):
     """fn(params) -> scalar; returns (value, grads keyed like params). A
     parameter that the loss does not reach (a frozen weight the forward
     detaches) gets a zero gradient, as under JAX's stop_gradient."""
-    value = fn(params)
-    grads = torch.autograd.grad(value, list(params.values()), allow_unused=True,
-                                materialize_grads=True)
+    with span(TRAIN_LOSS):
+        value = fn(params)
+    with span(TRAIN_BACKWARD):
+        grads = torch.autograd.grad(value, list(params.values()), allow_unused=True,
+                                    materialize_grads=True)
     return value.detach(), dict(zip(params, grads))
 
 
@@ -73,15 +77,29 @@ def apply_update(state: TrainState, loss, grads, tx, ema_decay: float):
     advances, and the 1e9 sentinel is returned. Updates the tensors in place
     (the returned state shares them); reading the loss waits for the device.
     Returns (state, loss as a float)."""
-    value = float(loss)
-    if not math.isfinite(value):
-        return dataclasses.replace(state, step=state.step + 1), NAN_SENTINEL
-    opt_state = tx.update(state.params, grads, state.opt_state)
-    n_updates = state.ema_num_updates
-    if ema_decay > 0.0:
-        n_updates = state.ema_update(state.params, ema_decay)
+    with span(TRAIN_LOSS_READ):
+        value = float(loss)
+    with span(TRAIN_UPDATE):
+        if not math.isfinite(value):
+            return dataclasses.replace(state, step=state.step + 1), NAN_SENTINEL
+        opt_state = tx.update(state.params, grads, state.opt_state)
+        n_updates = state.ema_num_updates
+        if ema_decay > 0.0:
+            n_updates = state.ema_update(state.params, ema_decay)
     return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1,
                                ema_num_updates=n_updates), value
+
+
+def _finish_step(state: TrainState, loss_fn, batch, gen, label, tx, ema_decay: float,
+                 reduce) -> tuple:
+    """What every step does once it has its batch and generator: the loss
+    and its gradients, `reduce` where given, then `apply_update`."""
+    value, grads = value_and_grad(
+        lambda p: loss_fn(p, batch, gen, label, state.step), state.params)
+    if reduce is not None:
+        with span(TRAIN_REDUCE):
+            value, grads = reduce(value, grads)
+    return apply_update(state, value, grads, tx, ema_decay)
 
 
 def make_train_step(model, loss, tx, ema_decay: float = 0.0, augment_fn=None, *,
@@ -93,12 +111,9 @@ def make_train_step(model, loss, tx, ema_decay: float = 0.0, augment_fn=None, *,
     loss_fn = make_loss_fn(model, loss, augment_fn)
 
     def step(state: TrainState, batch, seed: int, label=None):
-        gen = step_generator(seed, state.step, batch.device, rank)
-        value, grads = value_and_grad(
-            lambda p: loss_fn(p, batch, gen, label, state.step), state.params)
-        if reduce is not None:
-            value, grads = reduce(value, grads)
-        return apply_update(state, value, grads, tx, ema_decay)
+        with span(TRAIN_DRAW):
+            gen = step_generator(seed, state.step, batch.device, rank)
+        return _finish_step(state, loss_fn, batch, gen, label, tx, ema_decay, reduce)
 
     return step
 
@@ -115,15 +130,12 @@ def make_device_data_step(model, loss, tx, batch_size: int, ema_decay: float = 0
 
     def step(state: TrainState, data, seed: int):
         x = data[0] if has_label else data
-        gen = step_generator(seed, state.step, x.device, rank)
-        idx = torch.randint(0, x.shape[0], (batch_size,), generator=gen, device=x.device)
-        batch = x[idx]
-        label = data[1][idx] if has_label else None
-        value, grads = value_and_grad(
-            lambda p: loss_fn(p, batch, gen, label, state.step), state.params)
-        if reduce is not None:
-            value, grads = reduce(value, grads)
-        return apply_update(state, value, grads, tx, ema_decay)
+        with span(TRAIN_DRAW):
+            gen = step_generator(seed, state.step, x.device, rank)
+            idx = torch.randint(0, x.shape[0], (batch_size,), generator=gen, device=x.device)
+            batch = x[idx]
+            label = data[1][idx] if has_label else None
+        return _finish_step(state, loss_fn, batch, gen, label, tx, ema_decay, reduce)
 
     return step
 
