@@ -6,9 +6,12 @@ shard's loss and gradients (`train_step.value_and_grad`), the loss and every
 gradient go through one all-reduce of a flat bucket followed by a division
 by the world size (JAX's `pmean`), and only then does `apply_update` run, so
 clipping, Adam, EMA and the non-finite skip see the mean and every rank
-takes the same update (or skips it) together. `DistributedDataParallel` is
-not used: its hooks see `.grad` fields, and the step takes its gradients
-with `torch.autograd.grad` on a dict of parameters.
+takes the same update (or skips it) together. On the one-rank mesh without
+a process group the steps take no reduce: the mean of one rank is its own
+loss, which the step then reads when its forward ends.
+`DistributedDataParallel` is not used: its hooks see `.grad` fields, and
+the step takes its gradients with `torch.autograd.grad` on a dict of
+parameters.
 
 Randomness: rank r of a step draws from the generator keyed by (seed, step,
 r) (`train_step.step_generator`; rank 0 keys as one device does), the
@@ -32,10 +35,7 @@ def pmean(mesh: Mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
     float32 bucket [loss, every gradient]. The means are copied back into
     the gradient tensors, so that the update reads them with the layout
     (and the alignment, which picks the foreach kernels' summation order)
-    of a single-device step. Without a process group (the one-rank mesh)
-    they are returned as they are."""
-    if mesh.backend is None:
-        return loss, grads
+    of a single-device step."""
     flat = torch.cat([loss.detach().reshape(1).float()]
                      + [g.reshape(-1).float() for g in grads.values()])
     mesh.all_reduce_mean_(flat)
@@ -46,13 +46,21 @@ def pmean(mesh: Mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
     return flat[0], grads
 
 
+def _reduce(mesh: Mesh):
+    """The steps' `reduce`: `pmean` over the mesh, or None on the one-rank
+    mesh without a process group, where it would be the identity."""
+    if mesh.backend is None:
+        return None
+    return lambda v, g: pmean(mesh, v, g)
+
+
 def make_dp_train_step(model, loss, tx, mesh: Mesh, ema_decay: float = 0.0,
                        has_label: bool = False, augment_fn=None) -> Callable:
     """`step(state, batch, seed, label=None) -> (state, loss)`, where
     `batch` (and `label`, passed with `has_label`) are this rank's shard
     (`shard_batch`) and the returned loss is the mean over the ranks."""
     return make_train_step(model, loss, tx, ema_decay=ema_decay, augment_fn=augment_fn,
-                           rank=mesh.rank, reduce=lambda v, g: pmean(mesh, v, g))
+                           rank=mesh.rank, reduce=_reduce(mesh))
 
 
 def make_device_data_train_step(model, loss, tx, mesh: Mesh, batch_size: int,
@@ -67,7 +75,7 @@ def make_device_data_train_step(model, loss, tx, mesh: Mesh, batch_size: int,
         raise ValueError(f"batch_size {batch_size} must cover the mesh of {mesh.world}")
     return make_device_data_step(model, loss, tx, per_rank, ema_decay=ema_decay,
                                  has_label=has_label, augment_fn=augment_fn,
-                                 rank=mesh.rank, reduce=lambda v, g: pmean(mesh, v, g))
+                                 rank=mesh.rank, reduce=_reduce(mesh))
 
 
 def rank_generator(seed: int, rank: int, device) -> torch.Generator:

@@ -16,8 +16,9 @@ Every span the port opens is named in `SPANS`:
   `ctdd.network` inside it.
 - `ctdd.train.backward`: the host's time in `torch.autograd.grad`.
 - `ctdd.train.reduce`: the data-parallel mean of the loss and gradients.
-- `ctdd.train.loss_read`: the host reading the loss, which waits for the
-  device.
+- `ctdd.train.loss_read`: the host reading the loss for the non-finite
+  skip, which waits for the device: for the forward and the loss's copy
+  alone on a step without a reduce, for the reduced loss after a reduce.
 - `ctdd.train.update`: the non-finite skip, clip, Adam and EMA.
 - `ctdd.sample.step`: one sampler step or corrector step; what it holds
   beside its child spans is the state update.

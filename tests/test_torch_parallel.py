@@ -38,7 +38,7 @@ from ctdd_tpu_torch.training.loop import train
 from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
 from ctdd_tpu_torch.training.train_step import (
-    apply_update, make_loss_fn, make_train_step, step_generator, value_and_grad,
+    LOSS_READS, apply_update, make_loss_fn, make_train_step, step_generator, value_and_grad,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,6 +115,7 @@ def _rank(rank, world, port, tmp_dir, with_train):
     try:
         cfg = tiny_cfg(tmp_dir)
         out = {"mesh": (mesh.world, mesh.rank, mesh.backend)}
+        reads = dict(LOSS_READS)
         model, state, tx, loss = fresh(cfg)
         step = make_dp_train_step(model, loss, tx, mesh, ema_decay=0.9999)
         state, out["loss"] = step(state, shard_batch(global_batch(cfg, world), mesh), SEED)
@@ -127,6 +128,7 @@ def _rank(rank, world, port, tmp_dir, with_train):
         state, out["data_loss"] = step(state, dataset_on_device(cfg), SEED)
         out["data_rows"] = seen.rows
         out["data_params"] = state.params
+        out["reads"] = {k: LOSS_READS[k] - reads[k] for k in reads}
 
         sample = make_dp_sampler(get_sampler(cfg), mesh)
         out["sample_weights"] = state.ema_params
@@ -283,6 +285,15 @@ def test_device_data_step_draws_its_share_of_the_batch(two_ranks):
         assert r["data_rows"] == [DATA_BATCH]
         assert_same(r["data_params"], ranks[0]["data_params"])
     assert ranks[0]["data_loss"] == ranks[1]["data_loss"]
+
+
+def test_dp_steps_read_the_loss_after_the_reduce(two_ranks):
+    """Over several ranks the skip reads the mean, which exists only once
+    the backward and the all-reduce are done: both steps count their reads
+    as after a reduce, none as after the forward."""
+    _, ranks = two_ranks
+    for r in ranks:
+        assert r["reads"] == {"after_forward": 0, "after_reduce": 2}
 
 
 def test_device_data_step_refuses_a_batch_below_the_mesh():

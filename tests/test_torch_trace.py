@@ -25,7 +25,7 @@ from ctdd_tpu_torch.train import main as train_main
 from ctdd_tpu_torch.training.loop import PoolStream
 from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
-from ctdd_tpu_torch.training.train_step import make_train_step
+from ctdd_tpu_torch.training.train_step import make_device_data_step, make_train_step
 from ctdd_tpu_torch.utils import trace
 from tests.test_torch_unet import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -45,8 +45,9 @@ def tiny_cfg(*extra):
 
 def built(step_kind: str):
     """A seeded tiny model, its train state and a step with its arguments
-    bound: over a dataset on the device (`device_data`) or over a batch the
-    caller supplies (`batch`)."""
+    bound: over a dataset on the device (`device_data`, on the one-rank
+    mesh), the same with a reduce (`reduced`, the identity, as on a mesh of
+    several ranks) or over a batch the caller supplies (`batch`)."""
     cfg = tiny_cfg()
     torch.manual_seed(0)
     model = create_model(cfg, device="cpu")
@@ -57,6 +58,10 @@ def built(step_kind: str):
     if step_kind == "device_data":
         step = make_device_data_train_step(model, get_loss(cfg), tx, make_mesh(device="cpu"),
                                            4, ema_decay=0.9)
+        return model, state, lambda s: step(s, data, 7)
+    if step_kind == "reduced":
+        step = make_device_data_step(model, get_loss(cfg), tx, 4, ema_decay=0.9,
+                                     reduce=lambda v, g: (v, g))
         return model, state, lambda s: step(s, data, 7)
     step = make_train_step(model, get_loss(cfg), tx, ema_decay=0.9)
     return model, state, lambda s: step(s, data[:4], 7)
@@ -104,12 +109,13 @@ def test_span_names_live_in_one_tuple():
                 assert not node.value.startswith("ctdd."), (path, node.value)
 
 
-@pytest.mark.parametrize("step_kind", ["device_data", "batch"])
+@pytest.mark.parametrize("step_kind", ["device_data", "batch", "reduced"])
 def test_train_step_spans_and_their_nesting(step_kind):
     _, state, step = built(step_kind)
     _, seen, _ = recorded(lambda: step(state))
-    top = [n for n in TRAIN_TOP if step_kind == "device_data" or n != trace.TRAIN_REDUCE]
-    # no reduce without a mesh; the network inside the loss
+    top = [n for n in TRAIN_TOP if step_kind == "reduced" or n != trace.TRAIN_REDUCE]
+    # a reduce only where the step is given one (not on the one-rank
+    # mesh); the network inside the loss
     assert seen == [(n, ()) for n in top[:2]] + [(trace.NETWORK, (trace.TRAIN_LOSS,))] + [
         (n, ()) for n in top[2:]]
 
@@ -148,7 +154,7 @@ def test_data_pool_wait_span():
 
 
 def test_every_span_is_opened_somewhere():
-    model, state, step = built("device_data")
+    model, state, step = built("reduced")
     names = {n for n, _ in recorded(lambda: step(state))[1]}
     names |= {n for n, _ in recorded(lambda: sample_run(model, steps=2))[1]}
     names |= {n for n, _ in recorded(lambda: PoolStream(
@@ -220,7 +226,8 @@ def test_train_cli_profile_steps(tmp_path):
         events = json.load(f)["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     for n in TRAIN_TOP + (trace.NETWORK,):
-        assert names.count(n) == 2, n
+        # one rank: no reduce
+        assert names.count(n) == (0 if n == trace.TRAIN_REDUCE else 2), n
     assert os.path.getsize(traces[0]) > 0
 
 

@@ -28,9 +28,14 @@ from ctdd_tpu_torch.losses import losses as TL
 from ctdd_tpu_torch.training.optimizers import get_optimizer
 from ctdd_tpu_torch.training.state import create_train_state
 from ctdd_tpu_torch.losses.losses import get_loss
+from ctdd_tpu_torch.parallel.dp import make_device_data_train_step
+from ctdd_tpu_torch.parallel.mesh import make_mesh
+from ctdd_tpu_torch.training import train_step
 from ctdd_tpu_torch.training.train_step import (
-    NAN_SENTINEL, apply_update, get_train_step, make_device_data_step, value_and_grad,
+    NAN_SENTINEL, apply_update, get_train_step, make_device_data_step, make_loss_fn,
+    step_generator, value_and_grad,
 )
+from h100bench import common as bench
 from tests.test_torch_losses import assert_grads_close, injected, tiny_pair
 from tests.test_torch_unet import flagship_cfgs, one_torch_thread  # noqa: F401
 
@@ -161,3 +166,99 @@ def test_standard_builds_the_host_batch_step():
         losses.append(value)
         assert (state.step, state.opt_state.count, state.ema_num_updates) == (1, 1, 1)
     assert losses[0] == losses[1] < NAN_SENTINEL
+
+
+class _NaNAt:
+    """The preset's loss, times NaN on the steps in `bad`."""
+
+    def __init__(self, loss, bad):
+        self.loss, self.bad = loss, bad
+
+    def calc_loss(self, model, params, generator, minibatch, n_iter=0, **kw):
+        value = self.loss.calc_loss(model, params, generator, minibatch, n_iter=n_iter, **kw)
+        return value * float("nan") if n_iter in self.bad else value
+
+
+def _one_rank_step(tmodel, tcfg, loss, batch_size=2):
+    tx = get_optimizer(tcfg)
+    state = create_train_state({k: v.detach().clone() for k, v in
+                                tmodel.net.named_parameters()}, tx)
+    step = make_device_data_train_step(tmodel, loss, tx, make_mesh(device="cpu"), batch_size,
+                                       ema_decay=0.9999)
+    return state, tx, step
+
+
+def test_one_rank_step_takes_the_loss_before_the_backward(monkeypatch):
+    """On the one-rank mesh the step counts its read as after the forward,
+    and has done so by the time `torch.autograd.grad` runs."""
+    _, tcfg, _, _, tmodel = tiny_pair()
+    state, _, step = _one_rank_step(tmodel, tcfg, get_loss(tcfg))
+    seen = []
+    grad = torch.autograd.grad
+
+    def recording(*args, **kwargs):
+        seen.append(dict(train_step.LOSS_READS))
+        return grad(*args, **kwargs)
+
+    monkeypatch.setattr(train_step.torch.autograd, "grad", recording)
+    before = dict(train_step.LOSS_READS)
+    _, value = step(state, torch.zeros((8, 64), dtype=torch.int32), 0)
+    want = {"after_forward": before["after_forward"] + 1,
+            "after_reduce": before["after_reduce"]}
+    assert seen[-1] == want and train_step.LOSS_READS == want
+    assert value < NAN_SENTINEL
+
+
+def test_early_read_steps_match_the_tensor_read_by_hand():
+    """Four one-rank steps, a NaN loss at the third, against the same draws
+    stepped by hand through `value_and_grad` and `apply_update` on the loss
+    tensor: losses, params, EMA, mu, nu and the counters bit for bit."""
+    _, tcfg, _, _, tmodel = tiny_pair()
+    loss = _NaNAt(get_loss(tcfg), bad={2})
+    data = torch.randint(0, tcfg.data.S, (8, tcfg.model.concat_dim), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    seed, B = 11, 2
+    state, _, step = _one_rank_step(tmodel, tcfg, loss, B)
+    mine = []
+    for _ in range(4):
+        state, value = step(state, data, seed)
+        mine.append(value)
+
+    hand, tx, _ = _one_rank_step(tmodel, tcfg, loss, B)
+    loss_fn = make_loss_fn(tmodel, loss)
+    theirs = []
+    for k in range(4):
+        gen = step_generator(seed, k, data.device)
+        batch = data[torch.randint(0, data.shape[0], (B,), generator=gen)]
+        value, grads = value_and_grad(lambda p: loss_fn(p, batch, gen, None, k), hand.params)
+        hand, value = apply_update(hand, value, grads, tx, 0.9999)
+        theirs.append(value)
+
+    assert mine == theirs and mine[2] == NAN_SENTINEL and NAN_SENTINEL not in mine[:2] + mine[3:]
+    assert (state.step, state.opt_state.count, state.ema_num_updates) == \
+        (hand.step, hand.opt_state.count, hand.ema_num_updates) == (4, 3, 3)
+    for name, a, b in (("params", state.params, hand.params),
+                       ("ema", state.ema_params, hand.ema_params),
+                       ("mu", state.opt_state.mu, hand.opt_state.mu),
+                       ("nu", state.opt_state.nu, hand.opt_state.nu)):
+        assert all(torch.equal(a[k], b[k]) for k in a), name
+
+
+def test_early_loss_read_share_reader(monkeypatch):
+    """The benchmark's reader of the counter: the share of the process's
+    reads taken after the forward; None without reads, without the
+    counter, or off the one-card training cells."""
+    read = bench.load_reader("early_loss_read_share.train").read
+    ctx = bench.Context(cfg={}, traffic={}, setup_s=0.0)
+    ctx.counters.update(ranks=1)
+    monkeypatch.setattr(train_step, "LOSS_READS", {"after_forward": 0, "after_reduce": 0})
+    assert read(ctx) is None
+    _, tcfg, _, _, tmodel = tiny_pair()
+    state, _, step = _one_rank_step(tmodel, tcfg, get_loss(tcfg))
+    step(state, torch.zeros((8, 64), dtype=torch.int32), 0)
+    assert read(ctx) == 100.0
+    train_step.LOSS_READS["after_reduce"] += 3
+    assert read(ctx) == 25.0
+    assert read(bench.Context(cfg={}, traffic={}, setup_s=0.0, counters={"ranks": 4})) is None
+    monkeypatch.delattr(train_step, "LOSS_READS")
+    assert read(ctx) is None
