@@ -1,6 +1,6 @@
-"""What every cell of the benchmark shares: the manifest and its files,
-seeds, the seeded weights and data, timing on the card, the reading of a
-profiler trace, and the result line.
+"""What every cell of the benchmark shares: the manifest and its files, the
+reference family a configuration names, seeds, the seeded weights and data,
+timing on the card, the reading of a profiler trace, and the result line.
 
 Nothing here imports the program. The kinds of traffic (`kinds/`) drive
 it; the per-layer and end-to-end metrics (`metrics/`) read what a kind
@@ -30,6 +30,9 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 
 # the reading of an output that cannot be compared with the reference's
 FAR = 1e30
+
+# what every reference family (reference/<family>.py) defines
+FAMILY_MEMBERS = ("Net", "process", "per_row_loss", "forward_flops", "shrink")
 
 # sub-seed tags: one stream of draws each
 WEIGHTS, DATA, TRAIN, BATCH, CHOICE = 1, 2, 3, 4, 5
@@ -121,9 +124,10 @@ def sub_seed(seed: int, *tags: int) -> int:
     return int(words[0] >> np.uint64(1))
 
 
-def leaf_kinds(net) -> Dict[str, str]:
-    """Each parameter's draw: "fan" for conv and dense kernels, "norm" for
-    a normalization's scale, "bias" for the rest."""
+def leaf_kinds(net) -> Dict[str, Any]:
+    """Each parameter's draw: ("fan", fan_avg) for conv and dense kernels
+    (out and in channels times the receptive field, halved), "norm" for a
+    normalization's scale, "bias" for the rest."""
     import torch.nn as nn
 
     kinds = {}
@@ -131,38 +135,42 @@ def leaf_kinds(net) -> Dict[str, str]:
         for pname, p in mod.named_parameters(recurse=False):
             full = f"{mname}.{pname}" if mname else pname
             if p.dim() >= 2:
-                kinds[full] = "fan"
-            elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) and pname == "weight":
+                kinds[full] = ("fan", (p.shape[0] + p.shape[1]) * math.prod(p.shape[2:]) / 2.0)
+            elif (isinstance(mod, (nn.GroupNorm, nn.LayerNorm, nn.RMSNorm))
+                  and pname == "weight"):
                 kinds[full] = "norm"
             else:
                 kinds[full] = "bias"
     return kinds
 
 
-def seeded_weights(net, seed: int, device) -> Dict[str, Any]:
+def seeded_weights(net, seed: int, device, kinds: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
     """Float32 weights for every parameter of `net` (the reference's, whose
     names and shapes the program shares), drawn on `device` from `seed` in
-    one call: kernels uniform in +-sqrt(3 / fan_avg) (variance scaling 1,
-    every layer live, unlike the published near-zero output layers),
-    normalization scales 1 +- 0.1, biases +-0.05."""
+    one call, each by its kind (`kinds`, else `leaf_kinds(net)`): kernels
+    uniform in +-sqrt(3 / fan_avg) (variance scaling 1, every layer live,
+    unlike the published near-zero output layers), normalization scales
+    1 +- 0.1, biases +-0.05."""
     import torch
 
     shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
-    kinds = leaf_kinds(net)
+    kinds = leaf_kinds(net) if kinds is None else kinds
     sizes = [math.prod(s) for s in shapes.values()]
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, WEIGHTS))
     flat = torch.rand(sum(sizes), generator=gen, device=device) * 2.0 - 1.0
     out = {}
     for (name, shape), part in zip(shapes.items(), torch.split(flat, sizes)):
         kind = kinds[name]
-        if kind == "fan":
-            field = math.prod(shape[2:])
-            limit = math.sqrt(3.0 / ((shape[0] + shape[1]) * field / 2.0))
-            out[name] = part.mul_(limit).view(shape)
-        elif kind == "norm":
+        if kind == "norm":
             out[name] = part.mul_(0.1).add_(1.0).view(shape)
-        else:
+        elif kind == "bias":
             out[name] = part.mul_(0.05).view(shape)
+        else:
+            fan, fan_avg = kind
+            if fan != "fan":
+                raise ValueError(f"{name}: no draw of kind {kind!r}")
+            out[name] = part.mul_(math.sqrt(3.0 / fan_avg)).view(shape)
     return out
 
 
@@ -193,31 +201,36 @@ def seeded_data(cfg: dict, rows: int, seed: int, device):
                          dtype=torch.int32)
 
 
-def reference_net(cfg: dict, device, weights=None):
+def load_family(about: dict, here: Path = HERE):
+    """The reference family a configuration names in `about.reference`:
+    the module `reference/<family>.py`, holding every member of
+    FAMILY_MEMBERS (the contract is in `reference/__init__.py`)."""
+    if "reference" not in about:
+        raise ValueError("the configuration names no reference family: give its `about` "
+                         "a key `reference`, the name of a file reference/<family>.py")
+    family = load_module(here / "reference" / f"{about['reference']}.py")
+    missing = [m for m in FAMILY_MEMBERS if not callable(getattr(family, m, None))]
+    if missing:
+        raise ValueError(f"reference family {about['reference']!r} lacks {missing}")
+    return family
+
+
+def reference_net(family, cfg: dict, device, weights=None):
     import torch
 
-    from h100bench.reference.unet import Net
-
     with torch.device(device):
-        net = Net(cfg)
+        net = family.Net(cfg)
     if weights is not None:
         load_weights(net, weights)
     return net
 
 
-def forward_flops(cfg: dict, batch: int) -> float:
-    """FLOPs of one forward of the reference network at `batch`, counted by
-    FlopCounterMode on the meta device (shapes only, nothing computed)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
-    net = reference_net(cfg, "meta")
-    D = math.prod(cfg["data"]["shape"])
-    x = torch.zeros((batch, D), dtype=torch.int32, device="meta")
-    t = torch.zeros((batch,), device="meta")
-    with FlopCounterMode(display=False) as counter, torch.no_grad():
-        net(x, t)
-    return float(counter.get_total_flops())
+def reference_weights(family, cfg: dict, seed: int, device) -> Dict[str, Any]:
+    """The seeded weights of the family's network, each leaf drawn by the
+    family's `weight_kinds` where it has one, else by `leaf_kinds`."""
+    net = reference_net(family, cfg, "meta")
+    kinds = family.weight_kinds(net) if hasattr(family, "weight_kinds") else None
+    return seeded_weights(net, seed, device, kinds)
 
 
 def fused_tau_leap_bytes(N: int, D: int, S: int) -> int:

@@ -17,20 +17,19 @@ from pathlib import Path
 
 import pytest
 
+from h100bench import common
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 
 
-def shrink(cfg: dict) -> dict:
-    """The configuration at tiny widths: 8x8 images, ch 8, 5 steps; S as published."""
-    m, d = cfg["model"], cfg["data"]
-    m.update(ch=8, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[4], num_heads=2,
-             data_min_max=[0, 255], time_embed_dim=8)
-    d.update(S=256, image_size=8, shape=[m["input_channels"], 8, 8], batch_size=4)
-    m["concat_dim"] = m["input_channels"] * 64
-    cfg["sampler"]["num_steps"] = 5
-    cfg["about"]["dataset_rows"] = 32
-    return cfg
+def shrink_config(path: Path, bench: Path) -> None:
+    """Write the configuration at `path` at the tiny widths that its
+    reference family's `shrink` gives, the family taken from the harness
+    directory `bench`."""
+    cfg = json.loads(path.read_text())
+    family = common.load_family(cfg["about"], bench)
+    path.write_text(json.dumps(family.shrink(cfg), indent=1))
 
 
 def make_tree(dst: Path) -> Path:
@@ -39,8 +38,7 @@ def make_tree(dst: Path) -> Path:
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in manifest["configs"]:
-        path = dst / c["file"]
-        path.write_text(json.dumps(shrink(json.loads(path.read_text())), indent=1))
+        shrink_config(dst / c["file"], dst / "h100bench")
     (dst / "BENCHMARK.json").write_text(json.dumps(manifest, indent=1))
     return dst
 
@@ -48,6 +46,14 @@ def make_tree(dst: Path) -> Path:
 @pytest.fixture(scope="session")
 def tiny_tree(tmp_path_factory) -> Path:
     return make_tree(tmp_path_factory.mktemp("tiny"))
+
+
+# the CPU build has no CUDA to wait for: the kinds' waits become no-ops (a
+# `fault` for a `--trace 1` run on the CPU)
+NO_CUDA_WAIT = """
+import torch
+torch.cuda.synchronize = lambda *a, **k: None
+"""
 
 
 def run_cell(tree: Path, workload: str, seed: int = 3000000007, *, fault: str = "",

@@ -24,9 +24,9 @@ import torch
 
 from h100bench import common, program
 from h100bench.reference import sample as ref_sample
-from h100bench.reference.process import GaussianTargetRate
 
 BLOCK = 128  # rows of the reference's forward at a time
+CONTROL_NUMBER = "denoise_gap"  # the compared number the bf16 control fails
 
 
 class Recorder:
@@ -54,7 +54,7 @@ def run(r) -> common.Outcome:
         raise ValueError(f"offline generation has no variant {r.variant!r}")
     r.mark("imports")
     pcfg = program.config(cfg, overrides)
-    weights = common.seeded_weights(common.reference_net(cfg, "meta"), r.seed, dev)
+    weights = common.reference_weights(r.family, cfg, r.seed, dev)
     held = {"model": program.model(pcfg, weights, dev)}
     held["model"].net.eval()
     sampler = get_sampler(pcfg)
@@ -91,7 +91,7 @@ def run(r) -> common.Outcome:
     ctx.counters.update(window_s=window_s, samples=batches * N, batches=batches)
     if r.trace:
         D = int(np.prod(cfg["data"]["shape"]))
-        ctx.counters.update(flops_per_batch=(steps + 1) * common.forward_flops(cfg, N),
+        ctx.counters.update(flops_per_batch=(steps + 1) * r.family.forward_flops(cfg, N),
                             fused_tau_leap_bytes=common.fused_tau_leap_bytes(N, D, S))
         ctx.trace = common.profile_segment(lambda: batch(0), units=steps)
         xp = torch.randint(0, S, (N, D), device=dev, dtype=torch.int32,
@@ -114,8 +114,8 @@ def run(r) -> common.Outcome:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     with common.tf32_off():
-        net = common.reference_net(cfg, dev, weights).eval()
-        proc = GaussianTargetRate(cfg["model"], S, dev)
+        net = common.reference_net(r.family, cfg, dev, weights).eval()
+        proc = r.family.process(cfg, dev)
         tokens = torch.as_tensor(x_out, device=dev)
         if len(traj) != steps + 1:
             # the program did not run the configured steps: every step fails

@@ -29,9 +29,9 @@ import torch
 
 from h100bench import common, program
 from h100bench.reference import train as ref_train
-from h100bench.reference.process import GaussianTargetRate
 
 CHECKED_STEPS = 3
+CONTROL_NUMBER = "first_logits_gap"  # the compared number the bf16 control fails
 REFERENCE_ONLY = ("half_batch", "no_exchange")  # faults planted in the reference
 CHILD_WAIT_S = 300
 
@@ -76,11 +76,12 @@ def run(r):
     tseed = common.sub_seed(r.seed, common.TRAIN)
     if r.variant in REFERENCE_ONLY:
         dev = r.device
-        weights = common.seeded_weights(common.reference_net(cfg, "meta"), r.seed, dev)
+        weights = common.reference_weights(r.family, cfg, r.seed, dev)
         data = common.seeded_data(cfg, rows, r.seed, dev)
         keep = dict(keep_rows=per_rank // 2) if r.variant == "half_batch" else dict(keep_ranks=1)
-        prog = reference_readings(cfg, weights, data, tseed, ranks, per_rank, dev, **keep)
-        numbers = compare([prog], cfg, weights, data, tseed, ranks, per_rank, dev)
+        prog = reference_readings(r.family, cfg, weights, data, tseed, ranks, per_rank, dev,
+                                  **keep)
+        numbers = compare([prog], r.family, cfg, weights, data, tseed, ranks, per_rank, dev)
         return common.Outcome(metrics={}, numbers=numbers, attempted=CHECKED_STEPS,
                               failed=0, memory_peak_bytes=0)
 
@@ -131,7 +132,7 @@ def run_rank(r, cfg, tr, ranks, per_rank, rows, tseed) -> dict:
     pcfg = program.config(cfg, overrides)
     mesh = make_mesh(device=r.device if ranks == 1 else r.device.type)
     dev = mesh.device
-    weights = common.seeded_weights(common.reference_net(cfg, "meta"), r.seed, dev)
+    weights = common.reference_weights(r.family, cfg, r.seed, dev)
     data = common.seeded_data(cfg, rows, r.seed, dev)
     B = per_rank * ranks
     decay = float(pcfg.model.get("ema_decay", 0.0))
@@ -189,16 +190,16 @@ def run_rank(r, cfg, tr, ranks, per_rank, rows, tseed) -> dict:
         ctx.counters.update(window_s=window_s, steps=steps, samples=steps * B, ranks=ranks)
         if r.trace:
             n_prof = int(tr["profiled_steps"])
-            ctx.counters["flops_per_step"] = 3.0 * common.forward_flops(cfg, B)
+            ctx.counters["flops_per_step"] = 3.0 * r.family.forward_flops(cfg, B)
             ctx.trace = common.profile_segment(lambda: advance(n_prof), units=n_prof)
             if ranks == 1:
-                D, S = data.shape[1], cfg["data"]["S"]
                 g = torch.Generator(device=dev).manual_seed(r.seed)
                 x = data[:per_rank]
                 t = torch.rand(per_rank, device=dev, generator=g) * 0.99 + 0.01
                 st = held["state"]
                 plist = list(st.params.values())
-                g_out = torch.randn((per_rank, D, S), device=dev, generator=g)
+                # the shape of the network's output in the first step, on these many rows
+                g_out = torch.randn(seen[0].shape, device=dev, generator=g)
 
                 def network_fwd_bwd():
                     torch.autograd.grad(held["model"].apply(st.params, x, t, train=True),
@@ -227,20 +228,19 @@ def run_rank(r, cfg, tr, ranks, per_rank, rows, tseed) -> dict:
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        return compare(gathered, cfg, weights, data, tseed, ranks, per_rank, dev)
+        return compare(gathered, r.family, cfg, weights, data, tseed, ranks, per_rank, dev)
 
     return dict(metrics=metrics, check=check, attempted=steps, failed=failed,
                 memory_peak_bytes=max(g["peak"] for g in gathered), trace=ctx.trace,
                 busy_s=sum(busy) / len(busy) if ctx.trace else None)
 
 
-def reference_readings(cfg, weights, data, tseed, ranks, per_rank, dev, **fault):
-    """What the reference (with a planted `fault`, if any) gives for the
-    readings the program is compared on."""
+def reference_readings(family, cfg, weights, data, tseed, ranks, per_rank, dev, **fault):
+    """What the reference family (with a planted `fault`, if any) gives for
+    the readings the program is compared on."""
     with common.tf32_off():
-        net = common.reference_net(cfg, dev, weights)
-        ref = ref_train.Reference(net, GaussianTargetRate(cfg["model"], cfg["data"]["S"], dev),
-                                  cfg)
+        net = common.reference_net(family, cfg, dev, weights)
+        ref = ref_train.Reference(family.per_row_loss, net, family.process(cfg, dev), cfg)
         names = [n for n, _ in net.named_parameters()]
         losses, first, logits = [], None, None
         for k in range(CHECKED_STEPS):
@@ -269,7 +269,7 @@ def relative_rms(a: torch.Tensor, b: torch.Tensor, block: int = 1 << 24) -> floa
     return math.sqrt(num / den)
 
 
-def compare(readings, cfg, weights, data, tseed, ranks, per_rank, dev) -> dict:
+def compare(readings, family, cfg, weights, data, tseed, ranks, per_rank, dev) -> dict:
     """The compared numbers: the relative RMS gap of rank 0's network output
     in the first step (`first_logits_gap`), the worst relative gap of the
     checked steps' losses, and the worst leaf's gap
@@ -277,7 +277,7 @@ def compare(readings, cfg, weights, data, tseed, ranks, per_rank, dev) -> dict:
     change and of the EMA's change, over every rank's readings. Leaves whose
     reference gradient is under a thousandth of the median leaf's move by
     round-off alone under Adam and are left out of the two changes."""
-    ref = reference_readings(cfg, weights, data, tseed, ranks, per_rank, dev)
+    ref = reference_readings(family, cfg, weights, data, tseed, ranks, per_rank, dev)
     index = {n: i for i, n in enumerate(ref["names"])}
     rg = torch.tensor(ref["grad"], dtype=torch.float64)
     keep = rg >= 1e-3 * rg.median()

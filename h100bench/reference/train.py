@@ -1,18 +1,20 @@
-"""The tauLDR train step in plain PyTorch: the benchmark's reference.
+"""The train step in plain PyTorch, shared by every reference family: the
+benchmark's reference.
 
-One step of one rank: the batch rows, the times, x_t ~ q_{t|0}(.|x0) and
-the one-jump x~ drawn from the step's generator, dropout from the device's
-default generator; the CT-ELBO (CTElbo) or its annealed mix with the cross
-entropy (CTElboLambda); the gradients. Over the ranks the losses and the
-gradients are averaged, then clipped by their global norm, Adam (optax's
-defaults) takes the step and the EMA follows with its warm-up ramp.
+One step of one rank: the batch rows drawn from the step's generator,
+dropout from the device's default generator, then the family's
+`per_row_loss` (tau_unet's: the times, x_t ~ q_{t|0}(.|x0) and the
+one-jump x~ from the same generator, the CT-ELBO) and the gradients. Over
+the ranks the losses and the gradients are averaged, then clipped by their
+global norm, Adam (optax's defaults) takes the step and the EMA follows
+with its warm-up ramp.
 
 The draws follow the program's stated scheme, so the reference sees the
 rows, times, states and dropout masks the program saw: the step's two
 seeds are NumPy's `SeedSequence([seed, step] (+ [rank] above rank 0))`,
 the first seeding the step's generator, the second the device's default
 generator, and the draws come in the order the algorithm needs them
-(rows, times, x_t, the jump's dimension, its new state).
+(the rows first, then the family's loss's own).
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 NEG = -1e9
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -56,53 +57,11 @@ def rows(mat, idx):
     return torch.gather(mat, 1, idx.long()[:, :, None].expand(-1, -1, mat.shape[-1]))
 
 
-def per_row_loss(net, proc, cfg: dict, x0, gen, n_iter: int):
-    """(B,) loss terms of one rank's batch, whose mean is the loss, and the
-    network's (B, D, S) logits."""
-    lc, S = cfg["loss"], cfg["data"]["S"]
-    B, D = x0.shape
-    eps = lc["eps_ratio"]
-    min_t, max_t = lc["min_time"], cfg["training"]["max_t"]
-    ts = torch.rand((B,), generator=gen, device=x0.device) * (max_t - min_t) + min_t
-    qt0, rate = proc.transition(ts), proc.rate(ts)
-    x_t = categorical(gen, safe_log(rows(qt0, x0)))
-    iota = torch.arange(S, device=x0.device)
-    rate_rows = torch.where(iota == x_t[..., None], 0.0, rows(rate, x_t))
-    dims = categorical(gen, safe_log(rate_rows.sum(-1)))
-    newval = categorical(gen, safe_log(rate_rows[torch.arange(B, device=x0.device), dims]))
-    x_tilde = torch.where(torch.arange(D, device=x0.device)[None] == dims[:, None],
-                          newval[:, None], x_t)
-    logits = net(x_t, ts)
-    p0t = torch.softmax(logits, dim=-1)
-    qT = qt0.transpose(1, 2)  # rows of qT are columns of qt0
-    off = (iota != x_tilde[..., None]).float()
-    denom = rows(qT, x_tilde) + eps  # q_{t|0}(x~ | .)
-    r_in = rows(rate.transpose(1, 2), x_tilde)  # R(., x~)
-    reg = torch.einsum("bds,bks->bdk", off * r_in, qt0)
-    reg = (p0t / denom * reg).sum((1, 2))
-    inner = torch.log(torch.einsum("bds,bsk->bdk", p0t / denom, qt0) + eps)
-    numer = rows(qt0, x0)  # q_{t|0}(. | x0)
-    elem = torch.gather(numer, 2, x_tilde.long()[..., None])[..., 0] + eps
-    sig = (off * r_in * numer / elem[..., None] * inner).sum((1, 2))
-    out_rate = -torch.diagonal(rate, dim1=1, dim2=2)  # (B, S)
-    z_dim = torch.gather(out_rate, 1, x_tilde.long())
-    z = z_dim.sum(1)[:, None, None] - z_dim[..., None] + out_rate[:, None, :]
-    norm = (r_in * numer * off / (z * elem[..., None])).sum((1, 2))
-    elbo = reg - sig / norm
-    if lc["name"] == "CTElbo":
-        ce = -torch.gather(F.log_softmax(logits, -1), -1, x0.long()[..., None])[..., 0].mean(1)
-        return elbo + lc["nll_weight"] * ce, logits
-    if lc["name"] == "CTElboLambda":
-        w = n_iter / cfg["training"]["n_iters"]
-        ce = -torch.gather(F.log_softmax(logits, -1), -1, x0.long()[..., None])[..., 0].mean(1)
-        return w * elbo + (1.0 - w) * ce, logits
-    raise ValueError(f"no reference loss {lc['name']!r}")
-
-
-def rank_loss_grads(net, proc, cfg, data, seed: int, step: int, rank: int,
+def rank_loss_grads(per_row_loss, net, proc, cfg, data, seed: int, step: int, rank: int,
                     per_rank: int, keep: Optional[int] = None):
-    """One rank's (loss, grads, logits) at `step`. `keep` < per_rank
-    averages the loss over the first `keep` rows only (a planted fault)."""
+    """One rank's (loss, grads, logits) at `step`, the terms from the
+    family's `per_row_loss`. `keep` < per_rank averages the loss over the
+    first `keep` rows only (a planted fault)."""
     s_draw, s_drop = step_seeds(seed, step, rank)
     seed_dropout(data.device, s_drop)
     gen = torch.Generator(device=data.device).manual_seed(s_draw)
@@ -115,9 +74,11 @@ def rank_loss_grads(net, proc, cfg, data, seed: int, step: int, rank: int,
 
 class Reference:
     """The reference's train state over `net`'s parameters: Adam's
-    moments, the EMA and the counters, all float32."""
+    moments, the EMA and the counters, all float32; the loss is the
+    family's `per_row_loss`."""
 
-    def __init__(self, net, proc, cfg: dict):
+    def __init__(self, per_row_loss, net, proc, cfg: dict):
+        self.per_row_loss = per_row_loss
         self.net, self.proc, self.cfg = net, proc, cfg
         self.params = list(net.parameters())
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -162,8 +123,9 @@ class Reference:
         losses, total, first = [], None, None
         used = keep_ranks or ranks
         for r in range(used):
-            loss, grads, logits = rank_loss_grads(self.net, self.proc, self.cfg, data, seed,
-                                                  step, r, per_rank, keep_rows)
+            loss, grads, logits = rank_loss_grads(self.per_row_loss, self.net, self.proc,
+                                                  self.cfg, data, seed, step, r, per_rank,
+                                                  keep_rows)
             first = logits if first is None else first
             losses.append(loss)
             total = list(grads) if total is None else [a + b for a, b in zip(total, grads)]

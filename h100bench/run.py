@@ -32,7 +32,8 @@ CACHE = ROOT / "h100bench" / ".cache"
 
 @dataclasses.dataclass
 class Run:
-    """One run's arguments, configuration and traffic, as the kinds see it."""
+    """One run's arguments, configuration, reference family and traffic, as
+    the kinds see it."""
 
     workload: str
     seed: int
@@ -44,6 +45,7 @@ class Run:
     chips: int
     cfg: dict
     about: dict
+    family: object
     traffic: dict
     device: object
     read: object
@@ -94,7 +96,8 @@ def execute(args, device, root: Path = ROOT):
     entries = common.cell_metrics(manifest, args.workload, section)
     r = Run(workload=args.workload, seed=args.seed, seconds=args.seconds,
             trace=bool(args.trace), rank=args.rank, port=args.port, variant=args.variant,
-            chips=int(cell["chips"]), cfg=cfg, about=about, traffic=traffic, device=device,
+            chips=int(cell["chips"]), cfg=cfg, about=about,
+            family=common.load_family(about), traffic=traffic, device=device,
             read=lambda ctx: common.read_metrics(entries, ctx), t0=T0)
     out = kind.run(r)
     if out is None:

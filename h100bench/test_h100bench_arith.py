@@ -1,15 +1,18 @@
 """The harness's arithmetic on made-up traces and counters, its counts of
-FLOPs and bytes, and the checks that no run holds JAX or the JAX package
-and that the reference imports nothing of the program."""
+FLOPs and bytes, its weight draw, and the checks that no run holds JAX or
+the JAX package, that the reference imports nothing of the program, and
+that only the reference family reaches the UNet and its process."""
 
 from __future__ import annotations
 
 import ast
+import math
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from h100bench import common
 
@@ -100,9 +103,70 @@ def test_breakdown_names_ops_and_gaps():
 
 @pytest.mark.parametrize("name, gflop", [("tauUnet_mnist", 5.226), ("tauUnet_cifar10", 11.444)])
 def test_forward_flops_per_sample(name, gflop):
-    cfg, _ = common.load_config(common.load_manifest(), name)
-    assert common.forward_flops(cfg, 1) / 1e9 == pytest.approx(gflop, rel=1e-3)
-    assert common.forward_flops(cfg, 4) == pytest.approx(4 * common.forward_flops(cfg, 1))
+    cfg, about = common.load_config(common.load_manifest(), name)
+    family = common.load_family(about)
+    assert family.forward_flops(cfg, 1) / 1e9 == pytest.approx(gflop, rel=1e-3)
+    assert family.forward_flops(cfg, 4) == pytest.approx(4 * family.forward_flops(cfg, 1))
+
+
+class Block(torch.nn.Module):
+    """An RMSNorm and an expert bank of (E, out, in), as a MoE layer holds."""
+
+    def __init__(self):
+        super().__init__()
+        self.norm = torch.nn.RMSNorm(64)
+        self.bank = torch.nn.Parameter(torch.empty(4, 32, 64))
+        self.bias = torch.nn.Parameter(torch.empty(64))
+
+
+def test_rms_norm_scale_is_drawn_as_a_norm():
+    block = Block()
+    assert common.leaf_kinds(block)["norm.weight"] == "norm"
+    w = common.seeded_weights(block, 3000000007, "cpu")
+    assert float((w["norm.weight"] - 1.0).abs().max()) <= 0.1
+    assert float((w["norm.weight"] - 1.0).abs().max()) > 0.05
+    assert float(w["bias"].abs().max()) <= 0.05
+
+
+def test_a_family_fan_sets_the_limit():
+    block = Block()
+    assert common.leaf_kinds(block)["bank"] == ("fan", (4 + 32) * 64 / 2.0)
+    fan = 1000.0  # a fan of the family's own, not the conv-style (E + out) * in / 2
+    kinds = dict(common.leaf_kinds(block), bank=("fan", fan))
+    w = common.seeded_weights(block, 3000000007, "cpu", kinds)
+    limit = math.sqrt(3.0 / fan)
+    assert float(w["bank"].abs().max()) <= limit
+    assert float(w["bank"].abs().max()) > 0.99 * limit
+    same = common.seeded_weights(block, 3000000007, "cpu")
+    assert torch.equal(w["norm.weight"], same["norm.weight"])
+    with pytest.raises(ValueError, match="no draw of kind"):
+        common.seeded_weights(block, 1, "cpu", dict(kinds, bank=("uniform", 1.0)))
+
+
+def reaches_the_unet_or_its_process(node) -> bool:
+    if isinstance(node, ast.Import):
+        return any("reference.unet" in a.name for a in node.names)
+    if isinstance(node, ast.ImportFrom):
+        module = node.module or ""
+        return ("reference.unet" in module or any(
+            a.name == "GaussianTargetRate" or (module.endswith("reference") and a.name == "unet")
+            for a in node.names))
+    if isinstance(node, ast.Name):
+        return node.id == "GaussianTargetRate"
+    if isinstance(node, ast.Attribute):
+        return node.attr == "GaussianTargetRate"
+    return False
+
+
+def test_only_the_family_reaches_the_unet_and_its_process():
+    # the kinds, common, the metrics and the tests reach the reference through
+    # a family; reference/ itself (tau_unet.py among it) may import them
+    for path in sorted(HERE.rglob("*.py")):
+        if "reference" in path.relative_to(HERE).parts:
+            continue
+        bad = [node.lineno for node in ast.walk(ast.parse(path.read_text()))
+               if reaches_the_unet_or_its_process(node)]
+        assert bad == [], (path.name, bad)
 
 
 def test_fused_kernel_bytes():
@@ -132,7 +196,8 @@ def test_reference_imports_nothing_of_the_program():
                     path.name, n)
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import h100bench.reference.unet, h100bench.reference.process, "
-            "h100bench.reference.train, h100bench.reference.sample\n"
+            "h100bench.reference.train, h100bench.reference.sample, "
+            "h100bench.reference.tau_unet\n"
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'ctdd_tpu_torch', 'ctdd_tpu', 'jax', 'jaxlib', 'flax'})\n"
             "print(bad); sys.exit(1 if bad else 0)") % str(HERE.parent)

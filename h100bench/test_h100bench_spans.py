@@ -9,19 +9,13 @@ import json
 import pytest
 
 from h100bench import common, spans
-from h100bench.conftest import make_tree, run_cell
+from h100bench.conftest import NO_CUDA_WAIT, make_tree, run_cell
 
 SPAN_METRICS = {
     "mnist_train_b256": {"loss_span_ms.train", "network_span_ms.train",
                          "update_span_ms.train", "update_idle_ms.train"},
     "mnist_sample_n512": {"network_span_ms.sample"},
 }
-
-# the CPU build has no CUDA to wait for: the kinds' waits become no-ops
-NO_CUDA_WAIT = """
-import torch
-torch.cuda.synchronize = lambda *a, **k: None
-"""
 
 
 def ev(name, cat, ts, dur, tid=1, **args):
