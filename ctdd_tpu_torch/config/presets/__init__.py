@@ -1,4 +1,5 @@
 """Presets of the port; `get_preset(name)` resolves by the JAX preset name.
+`PORT_ONLY` are the port's own, which the JAX package has not.
 
 `parse_overrides` / `apply_overrides` take the CLIs' `--set key=value`
 pairs: values through `ast.literal_eval` (a plain string where that
@@ -42,7 +43,10 @@ _PRESETS = {
     "mnist_d3pm": "ctdd_tpu_torch.config.presets.mnist_d3pm",
     "synthetic_d3pm": "ctdd_tpu_torch.config.presets.synthetic_d3pm",
     "protein_maze_d3pm": "ctdd_tpu_torch.config.presets.maze_protein_d3pm",
+    "sdar_30b_a3b": "ctdd_tpu_torch.config.presets.sdar_30b_a3b",
 }
+
+PORT_ONLY = frozenset({"sdar_30b_a3b"})
 
 
 def preset_names():

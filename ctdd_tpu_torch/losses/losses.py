@@ -1,7 +1,8 @@
 """Training losses: the tauLDR family (CTElbo, NLL, CTElboLambda,
 NLLOriginal), the prefix-conditional CondCTElbo and CondNLL, the SDDM ELBOs
-(SDDMElbo, ScoreElbo), categorical ratio matching (CatRM, CatRMNLL) and the
-energy-based EBMAux and BinEBMAux.
+(SDDMElbo, ScoreElbo), categorical ratio matching (CatRM, CatRMNLL), the
+energy-based EBMAux and BinEBMAux, and the block-diffusion ELBO of the
+absorbing process (BlockAbsorbingElbo).
 
 Counterpart of ctdd_tpu/losses/losses.py. Each is a function of (model,
 params, generator, batch): the generator draws the times, x_t and x̃ where
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing
@@ -558,3 +560,53 @@ class BinEBMAux:
         logits = bin_ebm_flip_logits(model, params, xt, ts, train=train)
         _, ll_xt = logprob_with_logits(self.cfg.loss.logit_type, model, xt, ts, logits)
         return torch.sum(-ll_xt) / x0.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# block diffusion with the absorbing process
+# ---------------------------------------------------------------------------
+
+
+def block_absorbing_terms(model, params, generator, x0: torch.Tensor, min_time: float,
+                          block: int, train: bool = True):
+    """(B,) terms of the block-diffusion CT-ELBO and the network's logits.
+
+    Per row, one t per block of `block` tokens, uniform in [min_time, 1)
+    (one (B, L / block) draw), then x_t from the process's one draw a
+    position; the network sees x_t ⊕ x0 and gives the noisy half's logits.
+    A row's term is (1/L) Σ_i 1[x_t,i = mask] · w(t_b(i)) · CE_i, with w the
+    process's ELBO weight (1/t on the linear schedule) and CE_i the cross
+    entropy of x0_i under the logits with the mask id's left out of the
+    softmax (MDLM's SUBS parameterisation, arXiv:2406.07524)."""
+    proc = model.process
+    B, L = x0.shape
+    if L % block:
+        raise ValueError(f"the sequence length {L} is not a multiple of the block {block}")
+    t = torch.rand((B, L // block), generator=generator, device=x0.device)
+    t = (t * (1.0 - min_time) + min_time).repeat_interleave(block, dim=1)
+    x_t = proc.corrupt(generator, x0, t)
+    logits = model.apply(params, torch.cat([x_t, x0], dim=1), t, train=train)
+    subs = torch.arange(logits.shape[-1], device=x0.device) == proc.mask_id
+    ce = F.cross_entropy(logits.masked_fill(subs, float("-inf")).flatten(0, 1),
+                         x0.reshape(-1).long(), reduction="none").view(B, L)
+    masked = (x_t == proc.mask_id).float()
+    return (masked * proc.elbo_weight(t) * ce).sum(1) / L, logits
+
+
+@registry.losses.register
+class BlockAbsorbingElbo:
+    """The block-diffusion CT-ELBO of the absorbing process (BD3-LM's
+    vectorised training): a time-weighted cross entropy over the masked
+    positions, a t per block; the mean of `block_absorbing_terms`."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.min_time = cfg.loss.min_time
+        self.block = int(cfg.model.block_length)
+
+    def calc_loss(self, model, params, generator, minibatch, label=None, n_iter=0,
+                  train=True):
+        x0 = _flatten_batch(minibatch)
+        terms, _ = block_absorbing_terms(model, params, generator, x0, self.min_time,
+                                         self.block, train)
+        return terms.mean()

@@ -7,7 +7,9 @@ score networks (`_sudoku`, `_protein`), the sequence transformer
 (`_sequence_transformer`), the binary transformer EBM (`_binary_ebm`), DiT
 (`_dit`), U-ViT (`_uvit`) and the tauLDR U-Net (`_tau_unet`); the D3PM
 models `UniBertD3PM` and `UniProteinD3PM` have no process. Registered
-names match the JAX zoo so its configs resolve unchanged.
+names match the JAX zoo so its configs resolve unchanged. The port's own
+`AbsorbingSDARMoE`, SDAR's block-diffusion decoder (`_sdar_moe`) bound to
+the absorbing process, has no JAX counterpart.
 """
 
 from __future__ import annotations
@@ -110,6 +112,12 @@ def _protein(cfg):
     return ProteinScoreNetWrapper(cfg)
 
 
+def _sdar_moe(cfg):
+    from ctdd_tpu_torch.networks.sdar_moe import SDARMoE
+
+    return SDARMoE(cfg)
+
+
 _ZOO = {
     # name                                   (network, process)
     "GaussianUViTEMA":                        (_uvit, "GaussianTargetRate"),
@@ -137,6 +145,7 @@ _ZOO = {
     "UniformRateSequenceTransformerEMA":      (_sequence_transformer, "UniformRate"),
     "BirthDeathRateSequenceTransformerEMA":   (_sequence_transformer, "BirthDeathForwardBase"),
     "UniVarBinaryEBMEMA":                     (_binary_ebm, "UniformVariantRate"),
+    "AbsorbingSDARMoE":                       (_sdar_moe, "Absorbing"),
 }
 
 

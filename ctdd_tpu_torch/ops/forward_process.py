@@ -11,6 +11,10 @@ float32. All processes share the spectral-propagator form
 with per-kind β(t) schedules; the kinds differ in the base matrix and in
 whether rows are renormalized before the 1e-8 zero-clamp (all kinds except
 plain UniformRate renormalize).
+
+`Absorbing` is the exception: the mask (absorbing) process of block
+diffusion over a vocabulary, whose kernels are closed forms of the keep
+probability α_t, so it holds no (S, S) table and no tensor at all.
 """
 
 from __future__ import annotations
@@ -248,11 +252,58 @@ def make_gaussian_target(
     )
 
 
-def build_process(cfg, device=None) -> ForwardProcess:
-    """Build the forward process named by cfg.model.rate_name."""
+ABSORBING = "Absorbing"
+
+
+class AbsorbingProcess:
+    """The absorbing (mask) CTMC over S states whose last id is the mask: a
+    token keeps its value with probability α_t = 1 - t (the linear
+    schedule, MDLM's and BD3-LM's default) and is the mask otherwise; the
+    mask never leaves. Everything is closed form in t: no (S, S) table."""
+
+    def __init__(self, S: int, device=None):
+        self.S = int(S)
+        self.mask_id = self.S - 1
+        self._device = resolve_device(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def keep(self, t: torch.Tensor) -> torch.Tensor:
+        """α_t, the probability that a token is still unmasked at t."""
+        return 1.0 - t
+
+    def mask_rate(self, t: torch.Tensor) -> torch.Tensor:
+        """-α'_t / α_t: the rate at which an unmasked token is masked at t."""
+        return 1.0 / (1.0 - t)
+
+    def elbo_weight(self, t: torch.Tensor) -> torch.Tensor:
+        """-α'_t / (1 - α_t), the weight of a masked position's cross
+        entropy in the continuous-time ELBO (MDLM, eq. 10): 1 / t."""
+        return 1.0 / t
+
+    def corrupt(self, generator, x0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """x_t ~ q_{t|0}(.|x0): one uniform draw u a position from
+        `generator` (t has x0's shape); the position is the mask id where
+        u >= α_t, probability 1 - α_t, and keeps x0 otherwise."""
+        u = torch.rand(x0.shape, generator=generator, device=x0.device)
+        return torch.where(u >= self.keep(t), torch.full_like(x0, self.mask_id), x0)
+
+
+@registry.processes.register(name=ABSORBING)
+def make_absorbing(S: int, device=None) -> AbsorbingProcess:
+    return AbsorbingProcess(S, device=device)
+
+
+def build_process(cfg, device=None):
+    """Build the forward process named by cfg.model.rate_name. The absorbing
+    process's states are the data's S ids and the mask after them."""
     name = cfg.model.rate_name
     S = cfg.data.S
     m = cfg.model
+    if name == ABSORBING:
+        return make_absorbing(S + 1, device=device)
     if name == "BirthDeathForwardBase":
         return make_birth_death(S, m.sigma_min, m.sigma_max, device=device)
     if name == "UniformRate":

@@ -54,6 +54,7 @@ import torch
 
 from ctdd_tpu_torch import registry
 from ctdd_tpu_torch.ops import indexing, rate_kernels
+from ctdd_tpu_torch.ops.forward_process import ABSORBING
 from ctdd_tpu_torch.ops.fused_update import fused_tau_leap_update
 from ctdd_tpu_torch.ops.logprob import log_prob_from_logits, logprob_with_logits
 from ctdd_tpu_torch.utils.device import resolve_device
@@ -69,6 +70,12 @@ def rate_param_from_loss(loss_name: str) -> str:
 
 
 def get_sampler(cfg):
+    """The sampler cfg.sampler.name names; a model over the absorbing
+    process (block diffusion) has none yet."""
+    if cfg.model.get("rate_name") == ABSORBING:
+        raise NotImplementedError(
+            f"no block-diffusion sampler exists yet for {cfg.model.name!r} (the absorbing "
+            "process): it trains, but cannot generate")
     return registry.samplers.get(cfg.sampler.name)(cfg)
 
 

@@ -25,6 +25,12 @@ Every span the port opens is named in `SPANS`:
 - `ctdd.sample.tables`: the forward process's (S, S) tables at one time.
 - `ctdd.sample.denoise`: the final argmax, with `ctdd.network` inside it.
 - `ctdd.data.pool_wait`: the training loop waiting for a fresh data pool.
+- `ctdd.attn`: the block attention of `networks/sdar_moe.py` (its query
+  tiles, their keys and the tiles' attention), inside `ctdd.network`.
+- `ctdd.moe.route`: the expert layer's router, top-k, sort, the host's read
+  of the held experts' counts and the gather of their tokens.
+- `ctdd.moe.experts`: the held experts' products and the weighted
+  scatter-add of their outputs.
 
 A train step has no span of its own: the layer spans are its outermost
 ranges, so an idle gap of the device is named by the layer the host was in.
@@ -47,9 +53,13 @@ SAMPLE_STEP = "ctdd.sample.step"
 SAMPLE_TABLES = "ctdd.sample.tables"
 SAMPLE_DENOISE = "ctdd.sample.denoise"
 DATA_POOL_WAIT = "ctdd.data.pool_wait"
+ATTN = "ctdd.attn"
+MOE_ROUTE = "ctdd.moe.route"
+MOE_EXPERTS = "ctdd.moe.experts"
 
 SPANS = (NETWORK, TRAIN_DRAW, TRAIN_LOSS, TRAIN_BACKWARD, TRAIN_REDUCE, TRAIN_LOSS_READ,
-         TRAIN_UPDATE, SAMPLE_STEP, SAMPLE_TABLES, SAMPLE_DENOISE, DATA_POOL_WAIT)
+         TRAIN_UPDATE, SAMPLE_STEP, SAMPLE_TABLES, SAMPLE_DENOISE, DATA_POOL_WAIT, ATTN,
+         MOE_ROUTE, MOE_EXPERTS)
 
 NOOP = contextlib.nullcontext()
 

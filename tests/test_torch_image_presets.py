@@ -19,7 +19,7 @@ from ctdd_tpu.data import images as jax_images
 from ctdd_tpu.losses import losses as JL
 from ctdd_tpu.models.base import create_model as jax_create_model
 from ctdd_tpu_torch.config.base import Config
-from ctdd_tpu_torch.config.presets import apply_overrides, get_preset, preset_names
+from ctdd_tpu_torch.config.presets import PORT_ONLY, apply_overrides, get_preset, preset_names
 from ctdd_tpu_torch.convert import unet_params_from_flax
 from ctdd_tpu_torch.data import images
 from ctdd_tpu_torch.losses import losses as TL
@@ -46,13 +46,15 @@ def test_the_port_has_twenty_five_presets():
     slice added the last three: test_the_port_has_every_jax_preset)."""
     names = set(NEW + HOLLOW + EARLIER + MAZE + ["ebm_synthetic", "pianoroll_cond"])
     assert len(names) == 25 and names <= set(preset_names())
-    assert set(preset_names()) - names == {"mnist_d3pm", "synthetic_d3pm", "protein_maze_d3pm"}
+    assert set(preset_names()) - names - PORT_ONLY == {"mnist_d3pm", "synthetic_d3pm",
+                                                       "protein_maze_d3pm"}
 
 
 def test_the_port_has_every_jax_preset():
-    """All 28 of the JAX package's presets, and none besides."""
-    assert len(preset_names()) == 28
-    assert set(jax_preset_names()) ^ set(preset_names()) == set()
+    """All 28 of the JAX package's presets, and besides them only the port's
+    own (`PORT_ONLY`: SDAR's block diffusion)."""
+    assert len(preset_names()) == 28 + len(PORT_ONLY)
+    assert set(jax_preset_names()) ^ set(preset_names()) == PORT_ONLY
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -153,9 +153,27 @@ def test_data_pool_wait_span():
     assert int(first[0, 0]) == 0 and int(second[0, 0]) == 1
 
 
+def sdar_step():
+    """A tiny step of SDAR's block-diffusion training (the benchmark's
+    configuration at its reference family's widths): the attention's and
+    the expert layer's spans."""
+    from tests.test_torch_sdar_moe import tiny
+
+    _, cfg = tiny()
+    torch.manual_seed(0)
+    model = create_model(cfg, device="cpu")
+    tx = get_optimizer(cfg)
+    state = create_train_state(dict(model.net.named_parameters()), tx)
+    step = make_device_data_train_step(model, get_loss(cfg), tx, make_mesh(device="cpu"), 2)
+    data = torch.randint(0, 63, (8, 32), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    return lambda: step(state, data, 7)
+
+
 def test_every_span_is_opened_somewhere():
     model, state, step = built("reduced")
     names = {n for n, _ in recorded(lambda: step(state))[1]}
+    names |= {n for n, _ in recorded(sdar_step())[1]}
     names |= {n for n, _ in recorded(lambda: sample_run(model, steps=2))[1]}
     names |= {n for n, _ in recorded(lambda: PoolStream(
         Pools(), 2, 1, torch.device("cpu"), False).build(0))[1]}
