@@ -4,8 +4,8 @@ plain versions.
     python3 chip_smoke.py [--kernels-only]
 
 `--kernels-only` stops after the phases that build, check and time the
-kernels (1-4, 8, 9) and prints no result lines: a quick check of a kernel
-change.
+kernels (1-4, 8, 9, 20) and prints no result lines but kernel 4's: a quick
+check of a kernel change.
 
 Phases (any fault exits non-zero; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -34,7 +34,7 @@ Phases (any fault exits non-zero; nothing is caught):
               pianoroll_cond's (64, 224, 129) and the EBM's (256, 32, 2));
               the draw mode keyed and injected beside its bound and the
               chain it replaces (log-probs, noise, add, argmax, cast)
-              (phases 8 and 9 run straight after 4)
+              (phases 8, 9 and 20 run straight after 4)
  10. steps    where a batch-16 LBJF step's time goes, and its kernels per
               step
  11. serving  three more seeded checkpoints over HTTP (no warm-up batch),
@@ -164,6 +164,13 @@ Phases (any fault exits non-zero; nothing is caught):
               grid (TauL/100: 100 launches), samples_20.png beside the .npy,
               the loss-curve line; (e) the dry run of 2 processes on the CPU,
               and mnist_d3pm's host table build alone
+ 20. dense    the 3xTF32 GEMM at the SDAR cell's shapes (forward, input
+              gradient and weight gradient of q, k and v as one product, o
+              and the head, and a shape off every tile): the first and last
+              256 rows vs float64, at most 4x cuBLAS float32's error and
+              more than 100x below single TF32's; device time beside its
+              bound (FLOPs at 494.7/3 TFLOP/s), cuBLAS float32 and the
+              plain version
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4215,6 +4222,122 @@ def phase_parallel(dev, tmpdir: str, data_path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the 3xTF32 GEMM (kernel 4) at the SDAR cell's shapes
+# ---------------------------------------------------------------------------
+
+# (product, M, N, K) of the cell's forwards (B = 4, L = 4096, 2L positions);
+# each also runs as its input's and its weight's gradient
+DENSE_SHAPES = [("qkv", 32768, 5120, 2048), ("o", 32768, 2048, 4096),
+                ("head", 16384, 18992, 2048)]
+RAGGED_SHAPE = ("ragged", 130, 324, 96)  # off every tile in M, N and K
+
+
+def dense_forms(M, N, K, dev):
+    """A linear layer's three products at forward shape (M, N, K), as
+    `Dense` hands them to the kernel: {form: (a, b)}."""
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    x = torch.randn(M, K, device=dev, generator=g)
+    w = torch.randn(N, K, device=dev, generator=g)
+    gy = torch.randn(M, N, device=dev, generator=g)
+    return {"forward": (x, w.t()), "input_grad": (gy, w), "weight_grad": (gy.t(), x)}
+
+
+def hold_dense(what, a, b, c) -> dict:
+    """Kernel output `c` = a @ b against float64 on its first and last 256
+    rows, beside cuBLAS float32 and single TF32 on the same rows."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    worst = dict(err=0.0, cublas_err=0.0, tf32_err=math.inf)
+    try:
+        for rows in (slice(0, 256), slice(-256, None)):
+            want = a[rows].double() @ b.double()
+            scale = want.abs().max()
+            errs = {}
+            for key, tf32 in (("cublas_err", False), ("tf32_err", True)):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                errs[key] = float(((a[rows] @ b).double() - want).abs().max() / scale)
+            errs["err"] = float((c[rows].double() - want).abs().max() / scale)
+            if not (math.isfinite(errs["err"]) and errs["err"] <= 4.0 * errs["cublas_err"]
+                    and errs["tf32_err"] > 100.0 * errs["err"]):
+                raise AssertionError(f"3xTF32 {what} rows {rows}: {errs} (want at most 4x "
+                                     "cuBLAS float32, more than 100x below single TF32)")
+            worst = dict(err=max(worst["err"], errs["err"]),
+                         cublas_err=max(worst["cublas_err"], errs["cublas_err"]),
+                         tf32_err=min(worst["tf32_err"], errs["tf32_err"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return worst
+
+
+def phase_dense(dev) -> dict:
+    """Kernel 4 held to float64 at every shape the SDAR cell gives it, then
+    timed: the kernel and the plain version (`matmul_plain`, the same split
+    in PyTorch) by `timed`, cuBLAS float32 (TF32 off) as the library's
+    yardstick. The launch counter is zeroed here and read back."""
+    from ctdd_tpu_torch.ops import tf32x3_gemm as tg
+
+    tg.matmul.launches = 0
+    products, held = {}, 0
+    for name, M, N, K in DENSE_SHAPES + [RAGGED_SHAPE]:
+        for form, (a, b) in dense_forms(M, N, K, dev).items():
+            c = tg.matmul(a, b)
+            held += 1
+            err = hold_dense(f"{name} {form} {tuple(a.shape)} @ {tuple(b.shape)}", a, b, c)
+            rec = dict(shape=[a.shape[0], b.shape[1], a.shape[1]], **err)
+            if name != "ragged":
+                flops = 2.0 * a.shape[0] * b.shape[1] * a.shape[1]
+                rec.update(within_bound(dict(
+                    **timed(lambda: tg.matmul(a, b), lambda: tg.matmul_plain(a, b), 10),
+                    bound_ms=flops / (TF32_FLOP_PER_S / 3) * 1e3, bound_by="operations",
+                    flops=flops)))
+                saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+                try:
+                    rec["library_ms"] = device_ms(lambda: a @ b, 10) or cuda_ms(lambda: a @ b, 10)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = saved
+                log(f"  {name} {form} (M, N, K) = {tuple(rec['shape'])}: {rec['ms']:.3f} ms "
+                    f"by {rec['timed_by']}, bound {rec['bound_ms']:.3f} ms, cuBLAS float32 "
+                    f"{rec['library_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms; error "
+                    f"{err['err']:.3g} ({err['err'] / err['cublas_err']:.2f}x cuBLAS float32, "
+                    f"single TF32 {err['tf32_err'] / err['err']:.0f}x)")
+            else:
+                log(f"  ragged {form} (M, N, K) = {tuple(rec['shape'])}: error {err['err']:.3g} "
+                    f"({err['err'] / err['cublas_err']:.2f}x cuBLAS float32)")
+            products[f"{name}_{form}"] = rec
+            del c
+    if tg.matmul.launches < held:
+        raise AssertionError(f"3xTF32: {tg.matmul.launches} launches counted for {held} "
+                             "products held")
+    timed_products = [r for r in products.values() if "ms" in r]
+    record = {
+        "name": "tf32x3_gemm", "route": "cuda", "source": "ctdd_tpu_torch/csrc/tf32x3_gemm.cu",
+        "replaces": None, "launches": tg.matmul.launches, "held_products": held,
+        "max_rel_err": max(r["err"] for r in products.values()),
+        "max_err_over_cublas": max(r["err"] / r["cublas_err"] for r in products.values()),
+        "min_tf32_over_err": min(r["tf32_err"] / r["err"] for r in products.values()),
+        "ms": sum(r["ms"] for r in timed_products),
+        "bound_ms": sum(r["bound_ms"] for r in timed_products),
+        "library_ms": sum(r["library_ms"] for r in timed_products),
+        "plain_ms": sum(r["plain_ms"] for r in timed_products),
+        "bound_by": "operations", "timed_by": timed_products[0]["timed_by"],
+        "products": products,
+    }
+    log(dense_line(record))
+    return record
+
+
+def dense_line(k: dict) -> str:
+    """Kernel 4's `kernels` line: the cell's nine products summed, and the
+    worst accuracy over every product held."""
+    return (f"kernels {k['name']}: launches {k['launches']} ({k['held_products']} products "
+            f"held to float64), max rel err {k['max_rel_err']:.3g} (at most "
+            f"{k['max_err_over_cublas']:.2f}x cuBLAS float32's, single TF32 at least "
+            f"{k['min_tf32_over_err']:.0f}x worse); the cell's 9 products {k['ms']:.3f} ms, "
+            f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}), cuBLAS float32 "
+            f"{k['library_ms']:.3f} ms, plain {k['plain_ms']:.3f} ms; times by {k['timed_by']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -4234,7 +4357,8 @@ def main() -> int:
 
     stage("[2] build")
     t0 = time.perf_counter()
-    reports = _build.build(["fused_tau_leap", "reverse_rates", "euler_posterior"])
+    reports = _build.build(["fused_tau_leap", "reverse_rates", "euler_posterior",
+                            "tf32x3_gemm"])
     seconds = time.perf_counter() - t0
     for name, rep in reports.items():
         log(f"  {name}: {ptxas_summary(rep)}")
@@ -4256,6 +4380,9 @@ def main() -> int:
 
     stage("[9] timing of the rate kernels")
     rate_timing = phase_rate_timing(dev)
+
+    stage("[20] 3xTF32 GEMM at the SDAR cell's shapes")
+    dense = phase_dense(dev)
 
     if "--kernels-only" in sys.argv[1:]:
         log(f"  kernels only: {time.perf_counter() - t_start:.1f} s")
@@ -4446,6 +4573,7 @@ def main() -> int:
     for k in record["kernels"]:
         if k["launches"] <= 0:
             raise AssertionError(f"no served request launched {k['name']}")
+    record["kernels"].append(dense)
     log("serving: " + json.dumps({
         "samples_per_s": 16 / elapsed, "batch": 16, "steps": 1000,
         **breakdown}))
@@ -4465,7 +4593,7 @@ def main() -> int:
     log("slice9: " + json.dumps({**slice9, "card": card_line()}))
     log("d3pm: " + json.dumps({**d3pm, "card": card_line()}))
     log("parallel: " + json.dumps({**parallel, "card": card_line()}))
-    for k in record["kernels"]:
+    for k in record["kernels"][:-1]:
         log(f"kernels {k['name']}: launches {k['launches']}, max diff "
             f"{k['max_abs_err']:.3g}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"bound {k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}) at N=256; "
@@ -4480,6 +4608,7 @@ def main() -> int:
                f"(bound {k['serving_logprob_bound_ms'] * 1e3:.1f} us) and "
                f"{k['serving_unfused_ms']:.4f} ms at N=16"
                if "logprob_ms" in k else ""))
+    log(dense_line(dense))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps(record))

@@ -38,6 +38,16 @@ The expert layer sorts the token copies by the held expert they go to and
 reads the held experts' counts on the host once a layer to split them
 (`MOE_HOST_READS` counts those reads and the forwards).
 
+The dense products, q, k, v and o of each layer and the head, run under
+the `ctdd.dense` span through `ops/tf32x3_gemm.linear`: in float32 their
+input and weight gradients take the 3xTF32 kernel (tensor cores at float32
+accuracy; q, k and v as one product over their three weights), and so does
+the head's forward. The forwards of q, k, v and o stay on `F.linear`, one a
+weight: their outputs reach the routers, whose top-8 choice flips at a near
+tie under any other rounding, so they round as a plain float32 model's
+products do. `DENSE_FLOPS` counts the dense forward FLOPs, 2 M N K each.
+The experts' products and the router stay on `F.linear`.
+
 `model.compute_dtype="bfloat16"` runs the projections, the experts, the
 head and the attention in bf16 over float32 weights; the router, the norms
 and the embedding stay float32.
@@ -52,11 +62,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ctdd_tpu_torch.utils.trace import ATTN, MOE_EXPERTS, MOE_ROUTE, span
+from ctdd_tpu_torch.ops import tf32x3_gemm
+from ctdd_tpu_torch.utils.trace import ATTN, DENSE, MOE_EXPERTS, MOE_ROUTE, span
 
 # the host's reads of the held experts' counts, and the network's forwards,
 # in this process
 MOE_HOST_READS = {"reads": 0, "forwards": 0}
+
+# the forward FLOPs of the dense products (2 M N K each) in this process
+DENSE_FLOPS = {"forward": 0}
 
 # the most query tiles a half of the stream is cut into
 TILES = 8
@@ -67,6 +81,19 @@ def _linear(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
     if bf16:
         return F.linear(x.to(torch.bfloat16), w.to(torch.bfloat16)).float()
     return F.linear(x, w)
+
+
+def _dense(x: torch.Tensor, bf16: bool, *weights: torch.Tensor,
+           before_routing: bool) -> Tuple[torch.Tensor, ...]:
+    """x @ w.T for each weight (the attention's projections, the head), under
+    `ctdd.dense`: in float32 through `tf32x3_gemm.linear`, its forward on
+    `F.linear` where the output reaches a router; in bf16 one `_linear` a
+    weight."""
+    DENSE_FLOPS["forward"] += 2 * x.numel() * sum(w.shape[0] for w in weights)
+    with span(DENSE):
+        if bf16:
+            return tuple(_linear(x, w, True) for w in weights)
+        return tf32x3_gemm.linear(x, *weights, kernel_forward=not before_routing)
 
 
 def rope_tables(L: int, head_dim: int, theta: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -168,16 +195,18 @@ class BlockAttention(nn.Module):
 
     def forward(self, x, cos, sin, biases: TileBias):
         B, N, _ = x.shape
-        q = _linear(x, self.q_proj.weight, self.bf16).view(B, N, self.heads, self.head_dim)
-        k = _linear(x, self.k_proj.weight, self.bf16).view(B, N, self.kv_heads, self.head_dim)
-        v = _linear(x, self.v_proj.weight, self.bf16).view(B, N, self.kv_heads, self.head_dim)
+        q, k, v = _dense(x, self.bf16, self.q_proj.weight, self.k_proj.weight,
+                         self.v_proj.weight, before_routing=True)
+        q = q.view(B, N, self.heads, self.head_dim)
+        k = k.view(B, N, self.kv_heads, self.head_dim)
+        v = v.view(B, N, self.kv_heads, self.head_dim)
         q = apply_rope(self.q_norm(q), cos, sin)
         k = apply_rope(self.k_norm(k), cos, sin)
         with span(ATTN):
             if self.bf16:
                 q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
             o = block_attention(q, k, v, biases).float()
-        return _linear(o, self.o_proj.weight, self.bf16)
+        return _dense(o, self.bf16, self.o_proj.weight, before_routing=True)[0]
 
 
 class ExpertShare(nn.Module):
@@ -284,4 +313,5 @@ class SDARMoE(nn.Module):
         h = self.embed_tokens(x)
         for layer in self.layers:
             h = layer(h, cos, sin, biases)
-        return _linear(self.norm(h[:, :L]), self.lm_head.weight, self.bf16)
+        return _dense(self.norm(h[:, :L]), self.bf16, self.lm_head.weight,
+                      before_routing=False)[0]

@@ -31,6 +31,9 @@ Every span the port opens is named in `SPANS`:
   of the held experts' counts and the gather of their tokens.
 - `ctdd.moe.experts`: the held experts' products and the weighted
   scatter-add of their outputs.
+- `ctdd.dense`: one dense product of `networks/sdar_moe.py` (q, k and v
+  as one, o, the head), inside `ctdd.network`; its backward is charged to
+  it through the forward's sequence number.
 
 A train step has no span of its own: the layer spans are its outermost
 ranges, so an idle gap of the device is named by the layer the host was in.
@@ -56,10 +59,11 @@ DATA_POOL_WAIT = "ctdd.data.pool_wait"
 ATTN = "ctdd.attn"
 MOE_ROUTE = "ctdd.moe.route"
 MOE_EXPERTS = "ctdd.moe.experts"
+DENSE = "ctdd.dense"
 
 SPANS = (NETWORK, TRAIN_DRAW, TRAIN_LOSS, TRAIN_BACKWARD, TRAIN_REDUCE, TRAIN_LOSS_READ,
          TRAIN_UPDATE, SAMPLE_STEP, SAMPLE_TABLES, SAMPLE_DENOISE, DATA_POOL_WAIT, ATTN,
-         MOE_ROUTE, MOE_EXPERTS)
+         MOE_ROUTE, MOE_EXPERTS, DENSE)
 
 NOOP = contextlib.nullcontext()
 

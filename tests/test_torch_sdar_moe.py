@@ -283,6 +283,8 @@ def test_a_traced_tiny_run_reads_the_new_metrics(tmp_path):
     assert code == 0, err[-3000:]
     assert line["correct"] is True, line["checks"]
     metrics = line["metrics"]
-    for name in ("attn_span_ms.train", "moe_span_ms.train"):
+    for name in ("attn_span_ms.train", "moe_span_ms.train", "dense_span_ms.train"):
         assert metrics[name]["value"] > 0.0, name
     assert metrics["moe_host_reads.train"]["value"] == 2.0  # one a layer, two layers
+    # the CPU takes F.linear: the kernel ran none of the dense FLOPs
+    assert metrics["dense_tf32x3_share.train"]["value"] == 0.0
